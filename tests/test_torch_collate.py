@@ -1,7 +1,7 @@
 """The PyTorch port's host collate against the JAX FreeMaskCollator: every
-table is bitwise equal. Also: the port imports neither jax nor flax
-(checked in a subprocess, since this process imported jax through
-conftest)."""
+table is bitwise equal, the instance targets included. Also: the port,
+its train step included, imports neither jax nor flax (checked in a
+subprocess, since this process imported jax through conftest)."""
 
 import os
 import subprocess
@@ -90,6 +90,38 @@ def test_batch_tables_bitwise(both):
         np.testing.assert_array_equal(a, b)
 
 
+def _targets_equal(ref, got):
+    for name in ("labels", "valid", "seg_masks", "vox_masks"):
+        r, g = np.asarray(getattr(ref, name)), getattr(got, name).numpy()
+        assert r.dtype == g.dtype, name
+        np.testing.assert_array_equal(g, r, err_msg=name)
+
+
+def test_targets_bitwise(both):
+    ref, _, got, _ = both
+    assert got.target is not None
+    _targets_equal(ref.target, got.target)
+    assert got.target.labels.shape[1] % 8 == 0
+
+
+def test_targets_with_labels_and_emptied_instances_bitwise():
+    """mask_labels carry over for the kept instances; an instance that
+    voxelization empties (here: no point at all) is dropped."""
+    scenes = make_batch(2, num_points=1500, seed=3)
+    for i, s in enumerate(scenes):
+        k = s["masks"].shape[1]
+        s["masks"] = np.concatenate(
+            [s["masks"], np.zeros((len(s["xyz"]), 1), bool)], axis=1)
+        s["mask_labels"] = (np.arange(k + 1) % 3 + i).astype(np.int32)
+    ref, _ = JaxCollator(voxel_size=0.12, fps_queries=8)(scenes)
+    got, _ = FreeMaskCollator(voxel_size=0.12, fps_queries=8)(scenes)
+    _targets_equal(ref.target, got.target)
+    assert int(got.target.valid.sum()) == sum(
+        s["masks"].shape[1] - 1 for s in scenes)
+    moved = got.to("cpu")
+    assert torch.equal(moved.target.seg_masks, got.target.seg_masks)
+
+
 def test_segment_order_walks_each_segment_in_row_order(both):
     _, _, got, _ = both
     S = got.num_segments_padded
@@ -125,6 +157,14 @@ def test_port_imports_no_jax():
         "scene = make_scene(800, seed=1)\n"
         "res = Predictor(m, 'cpu', voxel_size=0.15)(scene)\n"
         "assert res['masks'].shape[0] == len(scene['xyz'])\n"
+        "from unscene3d_torch.data.collate import FreeMaskCollator\n"
+        "from unscene3d_torch.train.loop import build_trainer\n"
+        "t = build_trainer(torch.float32, backbone='Res16UNet14A',"
+        " hidden_dim=16, num_queries=4, num_heads=2, dim_feedforward=32,"
+        " num_decoders=1, sample_sizes=(16, 32, 64, 128, 256))\n"
+        "b, _ = FreeMaskCollator(voxel_size=0.15, fps_queries=4)([scene])\n"
+        "loss = t.train_step(b, torch.Generator().manual_seed(0))['total']\n"
+        "assert torch.isfinite(loss)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax',"
         " 'jaxlib')]\n"
         "assert not bad, bad\n"

@@ -8,8 +8,11 @@ imports neither jax nor the JAX package, so it runs where jax is absent:
 Tolerances, relative to max|twin|: f32 1e-5 (summation order only); bf16
 8e-3, just above one bf16 ulp at the top of max|twin|'s binade (2^-7): the
 kernel and the twin both sum in f32 and round once, so an output may differ
-by one ulp where the two f32 sums straddle a rounding boundary. Each kernel
-also runs twice and must give bitwise-equal output.
+by one ulp where the two f32 sums straddle a rounding boundary. dW (kernel
+5) is f32 in both dtypes and sums tens of thousands of rows: 1e-4 for f32
+inputs (FMA), 5e-4 for bf16 (the tensor cores' f32 accumulation does not
+round to nearest). Each kernel also runs twice and must give bitwise-equal
+output.
 """
 
 import numpy as np
@@ -18,7 +21,10 @@ import torch
 
 from unscene3d_torch.data.collate import FreeMaskCollator
 from unscene3d_torch.data.synthetic import make_scene
-from unscene3d_torch.ops.conv3 import conv3_fwd, conv3_fwd_plain
+from unscene3d_torch.ops import conv_ops
+from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_bwd_plain, conv3_dw,
+                                       conv3_dw_plain, conv3_fwd,
+                                       conv3_fwd_plain)
 from unscene3d_torch.ops.k_apply import k_apply, k_apply_plain
 from unscene3d_torch.ops.segment_pool import (segment_order, segment_sum,
                                               segment_sum_plain)
@@ -42,8 +48,9 @@ def levels():
     return batch.graph.levels
 
 
-def _close(got, ref, dtype):
-    tol = 1e-5 if dtype == torch.float32 else 8e-3
+def _close(got, ref, dtype, tol=None):
+    if tol is None:
+        tol = 1e-5 if dtype == torch.float32 else 8e-3
     err = (got.float() - ref.float()).abs().max().item()
     scale = max(ref.float().abs().max().item(), 1e-6)
     assert err <= tol * scale, (err, scale)
@@ -106,3 +113,72 @@ def test_segment_sum_matches_twin(cuda, dtype):
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _close(got, segment_sum_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lv,cin,cout", [(0, 3, 32), (0, 128, 96),
+                                         (1, 32, 32), (2, 384, 256)])
+def test_conv3_bwd_matches_twin(cuda, levels, dtype, lv, cin, cout):
+    lvl = levels[lv].to(cuda)
+    n = lvl.num_padded
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(n, cin, generator=g).to(cuda, dtype)
+    w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(cuda, dtype)
+    gm = (torch.randn(n, cout, generator=g).to(cuda)
+          * lvl.valid[:, None]).to(dtype)
+    dx, dw = conv3_bwd(x, gm, w, lvl.nbr_idx, lvl.valid)
+    dx2, dw2 = conv3_bwd(x, gm, w, lvl.nbr_idx, lvl.valid)
+    dw32 = conv3_dw(x, gm, lvl.nbr_idx)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert dw.dtype == dtype and dw32.dtype == torch.float32
+    dx_ref, _ = conv3_bwd_plain(x, gm, w, lvl.nbr_idx, lvl.valid)
+    _close(dx, dx_ref, dtype)
+    _close(dw32, conv3_dw_plain(x, gm, lvl.nbr_idx), dtype,
+           tol=1e-4 if dtype == torch.float32 else 5e-4)
+
+
+def test_autograd_functions_on_the_card(cuda, levels):
+    """The k3, k2, pool and segment-sum autograd Functions on the card
+    (kernels 1-5 forward and backward) against the same Functions on the
+    CPU (the twins), f32: outputs and input/weight gradients."""
+    L = levels
+    g = torch.Generator().manual_seed(5)
+    cases = {
+        "conv3": (lambda x, w, lv: conv_ops.sparse_conv3(x, w, lv[1]),
+                  (L[1].num_padded, 24), (27, 24, 40)),
+        "down2": (lambda x, w, lv: conv_ops.sparse_conv_down2(
+            x, w, lv[1], fine=lv[0]), (L[0].num_padded, 24), (8, 24, 40)),
+        "up2": (lambda x, w, lv: conv_ops.sparse_conv_up2(
+            x, w, lv[0], coarse=lv[1]), (L[1].num_padded, 24), (8, 24, 40)),
+        "pool": (lambda x, w, lv: conv_ops.avg_pool2(x, lv[1], fine=lv[0]),
+                 (L[0].num_padded, 24), None),
+    }
+    for name, (fn, xs, ws) in cases.items():
+        x = torch.randn(*xs, generator=g)
+        w = None if ws is None else torch.randn(*ws, generator=g) * 0.2
+        res = {}
+        for dev in ("cpu", cuda):
+            lv = [lvl.to(dev) for lvl in L]
+            xd = x.clone().to(dev).requires_grad_()
+            wd = None if w is None else w.clone().to(dev).requires_grad_()
+            out = fn(xd, wd, lv)
+            (out * out.detach()).sum().backward()
+            res[str(dev)] = [t.detach().cpu() for t in
+                             (out, xd.grad, None if wd is None else wd.grad)
+                             if t is not None]
+        for a, b in zip(res["cuda"], res["cpu"]):
+            _close(a, b, torch.float32, tol=1e-4)
+    ids = torch.randint(-1, 50, (3000,), generator=g).int()
+    valid = torch.rand(3000, generator=g) > 0.1
+    order, offsets = (torch.from_numpy(a) for a in
+                      segment_order(ids.numpy(), 48, valid.numpy()))
+    x = torch.randn(3000, 16, generator=g)
+    grads = []
+    for dev in ("cpu", cuda):
+        xd = x.clone().to(dev).requires_grad_()
+        out = segment_sum(xd, ids.to(dev), 48, valid.to(dev),
+                          order.to(dev), offsets.to(dev))
+        (out * out.detach()).sum().backward()
+        grads.append(xd.grad.cpu())
+    _close(grads[1], grads[0], torch.float32, tol=1e-4)

@@ -1,11 +1,14 @@
-"""The three kernel modules of the PyTorch port against the JAX package.
+"""The kernel modules of the PyTorch port against the JAX package.
 
 On the CPU each wrapper runs its plain twin, and the twin is held against
 the JAX function: kernel 1 against window_conv3_fwd run through the Pallas
 interpreter (as tests/test_window_conv.py runs it), kernel 2 against
 window_k_apply (its XLA reference on the CPU) for down, up and pool tables,
-kernel 3 against tile_segment_sum. tests/test_torch_cuda.py holds each CUDA
-kernel against its twin on the card.
+kernel 3 against tile_segment_sum, kernels 4 and 5 (the k3 backward)
+against window_conv3_bwd_fused and window_conv3_dw in the Pallas
+interpreter, on window graphs with and without spills.
+tests/test_torch_cuda.py holds each CUDA kernel against its twin on the
+card.
 
 Tolerances: f32 rtol 2e-4 / atol 2e-5 (tests/test_scan_decoder.py): the
 twins and the JAX functions sum the same f32 products in other orders.
@@ -21,10 +24,13 @@ from unscene3d_tpu.data.synthetic import make_scene
 from unscene3d_tpu.ops.kernel_maps import build_neighbor_map
 from unscene3d_tpu.ops.segment_pool import tile_segment_sum
 from unscene3d_tpu.ops.window_conv import (build_win_graph, pallas_interpret,
-                                           window_conv3_fwd)
+                                           window_conv3_bwd_fused,
+                                           window_conv3_dw, window_conv3_fwd)
 from unscene3d_tpu.ops.window_gather import (up_tables_from_parents as
                                              jax_up_tables, window_k_apply)
-from unscene3d_torch.ops.conv3 import conv3_fwd, conv3_fwd_plain, fold_bias
+from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_bwd_plain, conv3_dw,
+                                       conv3_dw_plain, conv3_fwd,
+                                       conv3_fwd_plain, fold_bias)
 from unscene3d_torch.ops.k_apply import (k_apply, k_apply_gemm,
                                          k_apply_plain, k_apply_sum)
 from unscene3d_torch.ops.kernel_maps import up_tables_from_parents
@@ -101,6 +107,65 @@ def test_conv3_twin_matches_pallas_interpret(blob_graph, cin, cout, spill,
                                atol=ATOL)
 
 
+# ------------------------------------------------------- kernels 4 and 5
+@pytest.mark.parametrize("cin,cout,spill,group", [
+    (48, 16, False, 1),
+    (48, 16, True, 1),    # spills: the fused kernel adds mirrored pairs back
+    (8, 24, True, 2),     # narrow input, grouped tiles
+])
+def test_conv3_bwd_twin_matches_pallas_fused_interpret(blob_graph, cin, cout,
+                                                       spill, group):
+    """Kernel 4's twin: dx and dW (all 27 offsets) against the fused Pallas
+    backward, which includes its spill corrections."""
+    nbr, valid = blob_graph
+    n_pad = nbr.shape[1]
+    wg = build_win_graph(nbr, n_pad, w_sub=256 if spill else 384,
+                         w_union=512 if spill else 768, group=group)
+    assert (int(wg.num_spill_padded) > 0) == spill
+    rng = np.random.RandomState(cin + 7 * cout)
+    x = rng.randn(n_pad, cin).astype(np.float32)
+    w = (rng.randn(27, cin, cout) * 0.1).astype(np.float32)
+    gm = rng.randn(n_pad, cout).astype(np.float32) * valid[:, None]
+    xz = x * valid[:, None]      # the Pallas kernel's zero-padding invariant
+    with pallas_interpret():
+        out = window_conv3_bwd_fused(jnp.asarray(xz), jnp.asarray(gm),
+                                     jnp.asarray(w), wg, jnp.asarray(valid))
+    assert out is not None
+    dx_ref, dw_ref = out
+    dx, dw = conv3_bwd_plain(_t(x), _t(gm), _t(w), _t(nbr.astype(np.int32)),
+                             _t(valid))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_ref), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(dw_ref), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_conv3_dw_twin_matches_pallas_dw_interpret(blob_graph, spill):
+    """Kernel 5's twin against the Pallas dW kernel (26 off-centre offsets,
+    spilled pairs excluded): the centre is the plain x^T gm and the spilled
+    pairs are added as window_conv.py:_win_bwd adds them."""
+    nbr, valid = blob_graph
+    n_pad = nbr.shape[1]
+    wg = build_win_graph(nbr, n_pad, w_sub=256 if spill else 384,
+                         w_union=512 if spill else 768)
+    assert (int(wg.num_spill_padded) > 0) == spill
+    rng = np.random.RandomState(11)
+    x = rng.randn(n_pad, 8).astype(np.float32)
+    gm = rng.randn(n_pad, 16).astype(np.float32) * valid[:, None]
+    xz = x * valid[:, None]
+    with pallas_interpret():
+        dws = np.asarray(window_conv3_dw(jnp.asarray(xz), jnp.asarray(gm), wg))
+    ref = np.concatenate([dws[:13], (xz.T @ gm)[None], dws[13:]])
+    if spill:
+        s_in, s_out = np.asarray(wg.spill_in), np.asarray(wg.spill_out)
+        for p, k in enumerate(np.asarray(wg.spill_k)):
+            ref[k] += np.outer(xz[s_in[p]], gm[s_out[p]])
+    got = conv3_dw_plain(_t(x), _t(gm), _t(nbr.astype(np.int32)))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
+
+
 # ------------------------------------------------------------- kernel 2
 @pytest.fixture(scope="module")
 def win_batch():
@@ -161,8 +226,12 @@ def test_segment_sum_twin_matches_tile_segment_sum(n, c, s):
 
 
 # ------------------------------------------------------- wrapper routing
+_KERNELS = (conv3_fwd, conv3_bwd, conv3_dw, k_apply_gemm, k_apply_sum,
+            segment_sum)
+
+
 def _reset_counters():
-    for fn in (conv3_fwd, k_apply_gemm, k_apply_sum, segment_sum):
+    for fn in _KERNELS:
         fn.launches = 0
 
 
@@ -191,5 +260,10 @@ def test_cpu_tensors_route_to_the_twins_without_launching():
                                            _t(offsets)),
                                segment_sum_plain(x, ids, 10, valid),
                                rtol=0, atol=0)
-    assert (conv3_fwd.launches, k_apply_gemm.launches, k_apply_sum.launches,
-            segment_sum.launches) == (0, 0, 0, 0)
+    gm = x * valid[:, None]
+    for a, b in zip(conv3_bwd(x, gm, w, nbr, valid),
+                    conv3_bwd_plain(x, gm, w, nbr, valid)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(conv3_dw(x, gm, nbr),
+                               conv3_dw_plain(x, gm, nbr), rtol=0, atol=0)
+    assert all(fn.launches == 0 for fn in _KERNELS)

@@ -9,7 +9,8 @@ or what nvcc accepts; tests/test_torch_cuda.py covers the card. Skips when no
 C++20 compiler is present.
 
 Tolerances, relative to max|twin|: f32 1e-5 (summation order only); bf16
-1.6e-2 (an output may round one bf16 ulp apart).
+8e-3 (an output may round one bf16 ulp apart). The dW kernel's output is f32
+in both dtypes (exact products summed in f32): 1e-5.
 """
 
 import ctypes
@@ -25,7 +26,8 @@ import torch
 from unscene3d_torch.data.collate import FreeMaskCollator
 from unscene3d_torch.data.synthetic import make_batch
 from unscene3d_torch.ops import _build
-from unscene3d_torch.ops.conv3 import conv3_fwd_plain
+from unscene3d_torch.ops.conv3 import (conv3_bwd_plain, conv3_dw_plain,
+                                       conv3_fwd_plain, dw_splits)
 from unscene3d_torch.ops.k_apply import k_apply_plain
 from unscene3d_torch.ops.segment_pool import segment_order, segment_sum_plain
 
@@ -153,3 +155,41 @@ def test_emulated_segment_sum(emu, dtype):
                            int(dtype == torch.bfloat16), None)
     assert code == 0
     _close(out, segment_sum_plain(x, ids, s, valid), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lv,cin,cout", [
+    (2, 3, 32),       # the stem's narrow input: 32 x 32 FMA tiles
+    (3, 32, 64),      # 32 x 64 FMA tiles
+    (3, 96, 32),      # 64 x 32 FMA tiles
+    (4, 40, 72),      # ragged 64 x 64 tiles
+])
+def test_emulated_conv3_bwd(emu, levels, dtype, lv, cin, cout):
+    """Kernel 4's dx entry (the gather-GEMM of gm with flip-transposed
+    weights) and kernel 5 (dW), the latter over one row range and over
+    three, whose partials the second pass sums."""
+    lvl = levels[lv]
+    n = lvl.num_padded
+    g = torch.Generator().manual_seed(lv * 100 + cin)
+    bf = int(dtype == torch.bfloat16)
+    x = torch.randn(n, cin, generator=g).to(dtype)      # noisy padding rows
+    w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(dtype)
+    gm = (torch.randn(n, cout, generator=g)
+          * lvl.valid[:, None]).to(dtype)
+    dx_ref, _ = conv3_bwd_plain(x, gm, w, lvl.nbr_idx, lvl.valid)
+    wf = torch.flip(w, dims=(0,)).transpose(1, 2).contiguous()
+    dx = torch.empty(n, cin, dtype=dtype)
+    assert emu.conv3_bwd_dx(_p(gm), _p(wf), _p(lvl.nbr_idx), _p(lvl.valid),
+                            _p(dx), n, cin, cout, bf, None) == 0
+    _close(dx, dx_ref, dtype)
+    dw_ref = conv3_dw_plain(x, gm, lvl.nbr_idx)
+    assert dw_splits(n, cin, cout)[0] == 1      # below _DW_MIN_ROWS
+    for splits in (1, 3):
+        rows = -(-n // splits)
+        rows = -(-rows // 32) * 32
+        part = torch.full((splits, 27, cin, cout), float("nan"))
+        dw = torch.empty(27, cin, cout)
+        assert emu.conv3_dw(_p(x), _p(gm), _p(lvl.nbr_idx),
+                            _p(part if splits > 1 else None), _p(dw), n,
+                            cin, cout, splits, rows, bf, None) == 0
+        _close(dw, dw_ref, torch.float32)

@@ -47,9 +47,11 @@ class _Holder(nn.Module):
 
 
 def _load_sparse(mod, variables):
+    """Load the JAX variables; returns the module in eval mode (folded BN),
+    the branch these tests hold against the JAX eval modules."""
     load_flax_variables(_Holder(mod), {
         c: {"backbone": variables[c]} for c in ("params", "batch_stats")})
-    return mod
+    return mod.eval()
 
 
 def _close(got, ref, rtol=RTOL, atol=ATOL):
@@ -79,7 +81,8 @@ def test_basic_block_eval(batches, cin, planes):
     v = random_bn(block.init(KEY, jnp.asarray(x), jl, False))
     ref = block.apply(v, jnp.asarray(x), jl, False)
     mod = _load_sparse(torch_sm.BasicBlock(cin, planes), v)
-    _close(mod(torch.from_numpy(x), tl), ref)
+    with torch.no_grad():     # the fused epilogue is forward only
+        _close(mod(torch.from_numpy(x), tl), ref)
 
 
 def test_backbone_eval(batches):
@@ -90,7 +93,8 @@ def test_backbone_eval(batches):
     res1, fpn, final = jax.jit(lambda v, f, g: model.apply(
         v, f, g, train=False))(v, jb.features, jb.graph)
     mod = _load_sparse(torch_backbone.Res16UNet14A(out_channels=2), v)
-    t_res1, t_fpn, t_final = mod(tb.features, tb.graph)
+    with torch.no_grad():
+        t_res1, t_fpn, t_final = mod(tb.features, tb.graph)
     _close(t_res1, res1)
     assert len(t_fpn) == len(fpn) == 5
     for a, b in zip(t_fpn, fpn):

@@ -1,8 +1,9 @@
-"""Collated eval batch as a dataclass of tensors (counterpart of
-unscene3d_tpu/data/batch.py:SceneBatch, eval fields only).
+"""Collated batch as a dataclass of tensors (counterpart of
+unscene3d_tpu/data/batch.py:SceneBatch and Targets; no triplane maps).
 
 Scenes are concatenated into flat padded arrays; per-scene decomposition goes
-through precomputed gather tables. `to(device)` moves every tensor."""
+through precomputed gather tables. `to(device)` moves every tensor, the
+targets included."""
 
 from __future__ import annotations
 
@@ -11,6 +12,23 @@ import dataclasses
 import torch
 
 from unscene3d_torch.ops.sparse_graph import SparseGraph
+
+
+@dataclasses.dataclass
+class Targets:
+    """Instance targets, padded to T instances per scene
+    (unscene3d_tpu/data/batch.py:Targets)."""
+
+    labels: torch.Tensor      # (B, T) int32 class ids
+    valid: torch.Tensor       # (B, T) bool
+    seg_masks: torch.Tensor   # (B, T, S) bool per-instance segment membership
+    vox_masks: torch.Tensor   # (N0, T) bool per-instance voxel masks, rows
+    #                           live only inside the owning scene's row range
+
+    def to(self, device, non_blocking: bool = False) -> "Targets":
+        return Targets(*(getattr(self, f.name).to(device,
+                                                  non_blocking=non_blocking)
+                         for f in dataclasses.fields(self)))
 
 
 @dataclasses.dataclass
@@ -30,6 +48,7 @@ class SceneBatch:
     seg_order: torch.Tensor      # (M,) int32 valid L0 rows, stable-sorted by
     #                              flat segment id b*S + point2segment
     seg_offsets: torch.Tensor    # (B*S + 1,) int32 offsets into seg_order
+    target: Targets | None = None  # when the scenes carry instance masks
 
     @property
     def batch_size(self) -> int:
@@ -53,6 +72,8 @@ class SceneBatch:
                 return v.to(device, non_blocking=non_blocking)
             if isinstance(v, tuple):
                 return tuple(mv(e) for e in v)
+            if v is None:
+                return None
             return v.to(device, non_blocking)
         return dataclasses.replace(self, **{
             f.name: mv(getattr(self, f.name))

@@ -1,12 +1,14 @@
-"""Host-side voxelization + collation for eval (counterpart of
-unscene3d_tpu/data/collate.py:FreeMaskCollator, eval subset).
+"""Host-side voxelization + collation (counterpart of
+unscene3d_tpu/data/collate.py:FreeMaskCollator, without crops, triplane maps
+or TPU tables).
 
 numpy only. With the same settings every table equals the JAX collator's
 bitwise (tests/test_torch_collate.py): the voxelize step, the 5-level graph,
-segments and seg_valid, per-level scene tables, level_bounds, seg_counts and
-the host FPS seeds. Two additions, static per batch: the stable segment row
-order and offsets that kernel 3 (ops/segment_pool.py) walks, and each
-level's one-hot parent tables `up_idx` that the up2 conv gathers through.
+segments and seg_valid, per-level scene tables, level_bounds, seg_counts,
+the host FPS seeds and, for scenes that carry instance `masks`, the targets.
+Two additions, static per batch: the stable segment row order and offsets
+that kernel 3 (ops/segment_pool.py) walks, and each level's one-hot parent
+tables `up_idx` that the up2 conv gathers through.
 """
 
 from __future__ import annotations
@@ -16,11 +18,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from unscene3d_torch.data.batch import SceneBatch
+from unscene3d_torch.data.batch import SceneBatch, Targets
 from unscene3d_torch.ops.hashing import sparse_quantize
 from unscene3d_torch.ops.kernel_maps import build_sparse_graph
 from unscene3d_torch.ops.segment_pool import segment_order
 from unscene3d_torch.ops.sparse_graph import LevelGraph, SparseGraph, bucket_size
+
+# instance targets are padded to a multiple of 8, at least 8 (the JAX
+# collator's target_align default)
+_TARGET_ALIGN = 8
 
 
 @dataclasses.dataclass
@@ -85,14 +91,41 @@ def _relabel(ids: np.ndarray) -> np.ndarray:
     return inv.astype(np.int32).reshape(-1)
 
 
+def _targets(per_scene: list[dict], scene_rows: list[tuple[int, int]],
+             s_max: int, n0_pad: int) -> Targets:
+    """Instance targets (unscene3d_tpu/data/collate.py:361-391): labels
+    from `mask_labels`, or 1 (the freemask foreground class) where a scene
+    has none; T = bucket_size(max instances, 8, min_size=8)."""
+    B = len(per_scene)
+    t_counts = [p["masks"].shape[1] for p in per_scene]
+    t_max = bucket_size(max(t_counts + [1]), align=_TARGET_ALIGN,
+                        min_size=_TARGET_ALIGN)
+    labels = np.zeros((B, t_max), np.int32)
+    t_valid = np.zeros((B, t_max), bool)
+    seg_masks = np.zeros((B, t_max, s_max), bool)
+    vox_masks = np.zeros((n0_pad, t_max), bool)
+    for b, p in enumerate(per_scene):
+        off, n = scene_rows[b]
+        k = p["masks"].shape[1]
+        labels[b, :k] = 1 if p["mask_labels"] is None else p["mask_labels"]
+        t_valid[b, :k] = True
+        vox_masks[off:off + n, :k] = p["masks"]
+        for t in range(k):
+            seg_masks[b, t, np.unique(p["seg"][p["masks"][:, t]])] = True
+    t = torch.from_numpy
+    return Targets(labels=t(labels), valid=t(t_valid),
+                   seg_masks=t(seg_masks), vox_masks=t(vox_masks))
+
+
 class FreeMaskCollator:
     """Collate a list of scene dicts (xyz (P,3), features (P,C), segments
-    (P,), optional segment_connectivity and name) into (SceneBatch of CPU
-    tensors, CollateMeta)."""
+    (P,), optional masks (P,K) bool with optional mask_labels (K,),
+    segment_connectivity and name) into (SceneBatch of CPU tensors,
+    CollateMeta). Instances that voxelization empties are dropped."""
 
     def __init__(self, voxel_size: float = 0.02, num_levels: int = 5,
-                 seg_align: int = 64, fine_buckets: bool = False,
-                 fps_queries: int = 100):
+                 seg_align: int = 64,
+                 fine_buckets: bool = False, fps_queries: int = 100):
         self.voxel_size = voxel_size
         self.num_levels = num_levels
         self.seg_align = seg_align
@@ -106,11 +139,19 @@ class FreeMaskCollator:
         for b, s in enumerate(scenes):
             xyz = np.asarray(s["xyz"], np.float32)
             vox, unique_map, inverse_map = sparse_quantize(xyz, self.voxel_size)
+            masks, mask_labels = s.get("masks"), None
+            if masks is not None:
+                masks = np.asarray(masks, bool)[unique_map]
+                keep = masks.sum(0) > 0   # drop instances voxelization emptied
+                masks = masks[:, keep]
+                if s.get("mask_labels") is not None:
+                    mask_labels = np.asarray(s["mask_labels"])[keep]
             per_scene.append(dict(
                 coords=vox,
                 feats=np.asarray(s["features"], np.float32)[unique_map],
                 raw=xyz[unique_map],
-                seg=_relabel(np.asarray(s["segments"])[unique_map])))
+                seg=_relabel(np.asarray(s["segments"])[unique_map]),
+                masks=masks, mask_labels=mask_labels))
             meta.scene_names.append(s.get("name", f"scene{b:04d}"))
             meta.inverse_maps.append(inverse_map)
             meta.num_voxels.append(len(vox))
@@ -130,11 +171,13 @@ class FreeMaskCollator:
         raw_coords = np.zeros((n0_pad, 3), np.float32)
         point2segment = np.zeros(n0_pad, np.int32)
         offset = 0
+        scene_rows = []
         for p in per_scene:
             n = len(p["coords"])
             features[offset:offset + n] = p["feats"]
             raw_coords[offset:offset + n] = p["raw"]
             point2segment[offset:offset + n] = p["seg"]
+            scene_rows.append((offset, n))
             offset += n
 
         scene_idx, scene_valid = [], []
@@ -171,6 +214,9 @@ class FreeMaskCollator:
         seg_counts = np.bincount(seg_flat[valid0], minlength=B * s_max
                                  ).astype(np.float32)[:B * s_max]
         seg_order, seg_offsets = segment_order(seg_flat, B * s_max, valid0)
+        target = None
+        if per_scene[0]["masks"] is not None:
+            target = _targets(per_scene, scene_rows, s_max, n0_pad)
 
         t = torch.from_numpy
         graph = SparseGraph(tuple(
@@ -189,5 +235,5 @@ class FreeMaskCollator:
             scene_valid=tuple(t(a) for a in scene_valid),
             level_bounds=t(level_bounds), seg_counts=t(seg_counts),
             fps_idx=t(fps_idx), seg_order=t(seg_order),
-            seg_offsets=t(seg_offsets))
+            seg_offsets=t(seg_offsets), target=target)
         return batch, meta

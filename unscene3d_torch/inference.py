@@ -34,7 +34,9 @@ def build_mask3d(dtype=torch.float32, backbone: str = "Res16UNet34C",
                  seed: int | None = 0, **kw) -> Mask3D:
     """Mask3D over `backbone` at conf/model/mask3d.yaml's widths (hidden
     128, 100 queries, 8 heads, FFN 1024, 3 shared decoders, hlevels 0-3,
-    num_classes 3), with seeded random weights unless seed is None."""
+    num_classes 3), with seeded random weights unless seed is None, in eval
+    mode. Params are stored in the compute dtype (train/loop.py builds f32
+    masters instead)."""
     cfg = dict(num_classes=3, hidden_dim=128, num_queries=100, num_heads=8,
                dim_feedforward=1024, num_decoders=3, hlevels=(0, 1, 2, 3))
     cfg.update(kw)

@@ -1,2 +1,2 @@
-"""Sparse UNet backbone and the Mask3D decoder, eval forward, plus the weight
-bridge from the JAX package's variables."""
+"""Sparse UNet backbone and the Mask3D decoder (eval and train forwards),
+plus the weight bridge from the JAX package's variables."""

@@ -1,16 +1,22 @@
-"""Res16UNet sparse-conv backbone family, eval forward (counterpart of
+"""Res16UNet sparse-conv backbone family (counterpart of
 unscene3d_tpu/models/backbone.py).
 
 A 4-down/4-up UNet over the 5-level SparseGraph with skip concatenations,
 returning the full-res features, the FPN list [stride 16, 8, 4, 2, 1] the
 Mask3D decoder consumes, and the final k1 projection. Submodule names equal
 the JAX package's, so the weight bridge maps names one to one.
+
+Eval folds each BatchNorm into its conv's epilogue. Training runs conv ->
+BN -> ReLU unfolded and recomputes each residual block in the backward
+(torch.utils.checkpoint, as the JAX model's nn.remat under the backbone
+conf's default `remat: true`).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unscene3d_torch.models.sparse_modules import (BasicBlock,
                                                    SparseBatchNorm,
@@ -45,7 +51,7 @@ class Res16UNetBase(nn.Module):
     def _conv_bn(self, name, cin, cout, kind):
         self.add_module(f"{name}_conv",
                         SparseConv(cin, cout, kind, dtype=self.dtype))
-        self.add_module(f"{name}_bn", SparseBatchNorm(cout))
+        self.add_module(f"{name}_bn", SparseBatchNorm(cout, dtype=self.dtype))
 
     def _blocks(self, name, cin, planes, n):
         for bi in range(n):
@@ -54,14 +60,20 @@ class Res16UNetBase(nn.Module):
             cin = planes
         return planes
 
-    def _run_conv_bn(self, name, x, level):
-        sc, sh = getattr(self, f"{name}_bn").fold()
-        return getattr(self, f"{name}_conv")(x, level, scale=sc, shift=sh,
-                                             relu=True)
+    def _run_conv_bn(self, name, x, level, other=None):
+        conv, bn = getattr(self, f"{name}_conv"), getattr(self, f"{name}_bn")
+        if self.training:
+            return torch.relu(bn(conv(x, level, other), level.valid))
+        sc, sh = bn.fold()
+        return conv(x, level, other, scale=sc, shift=sh, relu=True)
 
     def _run_blocks(self, name, x, level, n):
         for bi in range(n):
-            x = getattr(self, f"{name}_{bi}")(x, level)
+            block = getattr(self, f"{name}_{bi}")
+            if self.training:
+                x = checkpoint(block, x, level, use_reentrant=False)
+            else:
+                x = block(x, level)
         return x
 
     def forward(self, features, graph: SparseGraph):
@@ -73,7 +85,8 @@ class Res16UNetBase(nn.Module):
         out = out_p1
         skips = []
         for s in range(4):
-            out = self._run_conv_bn(f"conv{s + 1}p{2 ** s}s2", out, L[s + 1])
+            out = self._run_conv_bn(f"conv{s + 1}p{2 ** s}s2", out, L[s + 1],
+                                    L[s])
             out = self._run_blocks(f"block{s + 1}", out, L[s + 1],
                                    self.layers[s])
             skips.append(out)
@@ -81,7 +94,7 @@ class Res16UNetBase(nn.Module):
         for u in range(4):
             lv = 3 - u
             out = self._run_conv_bn(f"convtr{u + 4}p{2 ** (4 - u)}s2", out,
-                                    L[lv])
+                                    L[lv], L[lv + 1])
             skip = skips[lv - 1] if lv > 0 else out_p1
             out = torch.cat([out, skip], dim=-1)
             out = self._run_blocks(f"block{u + 5}", out, L[lv],

@@ -1,12 +1,14 @@
-"""Mask3D, eval forward: sparse UNet backbone + the iterative mask decoder
-(counterpart of unscene3d_tpu/models/mask3d.py).
+"""Mask3D: sparse UNet backbone + the iterative mask decoder (counterpart of
+unscene3d_tpu/models/mask3d.py).
 
-The eval path of the JAX model: host FPS query seeds (`batch.fps_idx`),
-per-level attention inputs computed once and reused by every decoder round
-(sampling is the identity at eval), the attention block mask read out of
-avg-pooled mask features, and the plain loop over shared decoder rounds.
-Train-time point sampling and the random / learned query modes raise
-NotImplementedError.
+Host FPS query seeds (`batch.fps_idx`), the attention block mask read out of
+avg-pooled mask features, and the plain loop over decoder rounds. Eval
+(`model.eval()`): sampling is the identity, so the per-level attention
+inputs are computed once and reused by every round. Training
+(`model.train()`): each round samples each scene's points per level
+(`_sample_level`, uniform scores from a torch.Generator, top-k), with the
+gradient stopped through the pooled block-mask readout as the JAX model
+stops it. The random / learned query modes raise NotImplementedError.
 
 Shapes: Q queries, S padded segments per scene, C classes, L =
 num_decoders * len(hlevels) + 1 prediction sets.
@@ -25,6 +27,31 @@ from unscene3d_torch.models.transformer_layers import (CrossAttentionLayer,
                                                        SelfAttentionLayer)
 from unscene3d_torch.ops import conv_ops
 from unscene3d_torch.ops.segment_pool import segment_sum
+
+
+def _sample_level(batch: SceneBatch, hlevel: int, sample_size: int,
+                  generator: torch.Generator | None = None, scores=None):
+    """Per-scene point subsampling at aux level `hlevel`
+    (unscene3d_tpu/models/mask3d.py:_sample_level). Returns (flat row indices
+    (B, P), validity (B, P)): the identity when the level's scene table is
+    no wider than `sample_size`, else the top `sample_size` of uniform
+    scores over valid rows. `scores` (B, n_max) f32, if given, replaces the
+    draw from `generator` (tests feed both packages the same numbers)."""
+    glevel = 4 - hlevel
+    scene_idx = batch.scene_idx[glevel]
+    scene_valid = batch.scene_valid[glevel]
+    if scene_idx.shape[1] <= sample_size:
+        return scene_idx, scene_valid
+    if scores is None:
+        dev = generator.device if generator is not None else scene_idx.device
+        scores = torch.rand(scene_valid.shape, generator=generator,
+                            device=dev)
+    scores = torch.where(scene_valid, scores.to(scene_valid.device),
+                         torch.tensor(float("-inf"),
+                                      device=scene_valid.device))
+    sel = torch.topk(scores, sample_size, dim=1).indices
+    return (torch.gather(scene_idx, 1, sel),
+            torch.gather(scene_valid, 1, sel))
 
 
 def _attend_level(layers, queries, query_pos, blocked, sel_valid, src,
@@ -53,12 +80,13 @@ class Mask3D(nn.Module):
                  num_heads: int = 8, dim_feedforward: int = 1024,
                  num_decoders: int = 3, shared_decoder: bool = True,
                  hlevels: tuple = (0, 1, 2, 3),
+                 sample_sizes: tuple = (200, 800, 3200, 12800, 51200),
                  non_parametric_queries: bool = True,
                  normalize_pos_enc: bool = True,
                  positional_encoding_type: str = "fourier",
                  gauss_scale: float = 1.0, scatter_type: str = "mean",
                  use_level_embed: bool = False, use_np_features: bool = False,
-                 dtype=torch.float32):
+                 dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
         if not non_parametric_queries:
             raise NotImplementedError(
@@ -66,6 +94,9 @@ class Mask3D(nn.Module):
         if use_level_embed or use_np_features or scatter_type != "mean":
             raise NotImplementedError(
                 "level embeddings, np features and max scatter are not ported")
+        if dropout != 0.0:
+            raise NotImplementedError("decoder dropout is not ported "
+                                      "(conf/model/mask3d.yaml sets 0.0)")
         D = hidden_dim
         self.backbone = backbone
         self.num_classes = num_classes
@@ -74,6 +105,7 @@ class Mask3D(nn.Module):
         self.num_decoders = num_decoders
         self.shared_decoder = shared_decoder
         self.hlevels = tuple(hlevels)
+        self.sample_sizes = tuple(sample_sizes)
         self.dtype = dtype
         self.pos_enc = PositionEmbeddingCoordsSine(
             d_pos=D, gauss_scale=gauss_scale, normalize=normalize_pos_enc,
@@ -122,11 +154,18 @@ class Mask3D(nn.Module):
         return (seg_logits.reshape(B * S, Q)[seg_flat]
                 * valid[:, None].to(seg_logits.dtype))
 
-    @torch.no_grad()
-    def forward(self, batch: SceneBatch) -> dict:
-        """Eval forward. Returns pred_logits (L,B,Q,C), pred_masks_seg
-        (L,B,S,Q), pred_masks_vox (1,N0,Q) for the final set,
-        sampled_coords (B,Q,3), backbone_features and mask_features."""
+    def forward(self, batch: SceneBatch,
+                generator: torch.Generator | None = None) -> dict:
+        """Returns pred_logits (L,B,Q,C), pred_masks_seg (L,B,S,Q),
+        pred_masks_vox (1,N0,Q) for the final set, sampled_coords (B,Q,3),
+        backbone_features and mask_features. Eval runs without autograd;
+        training draws the point samples from `generator`."""
+        if not self.training:
+            with torch.no_grad():
+                return self._forward(batch, None)
+        return self._forward(batch, generator)
+
+    def _forward(self, batch: SceneBatch, generator) -> dict:
         B = batch.batch_size
         S = batch.num_segments_padded
         D = self.hidden_dim
@@ -135,20 +174,22 @@ class Mask3D(nn.Module):
 
         pcd_features, fpn, _final = self.backbone(batch.features, batch.graph)
 
-        # coordinate pyramid by repeated average pooling of the raw coords
-        coords_by_level = [batch.raw_coords]
-        for lv in range(1, 5):
-            coords_by_level.append(
-                conv_ops.avg_pool2(coords_by_level[-1], levels[lv]))
-
-        # per-level positional encodings, normalised by host level bounds
-        pe_by_level = []
-        for lv in range(5):
-            bidx = levels[lv].coords[:, 0].long()
-            mn = batch.level_bounds[:, lv, 0][bidx]
-            mx = batch.level_bounds[:, lv, 1][bidx]
-            pe = self.pos_enc(coords_by_level[lv][None], mn[None], mx[None])[0]
-            pe_by_level.append(pe * levels[lv].valid[:, None].to(pe.dtype))
+        with torch.no_grad():
+            # coordinate pyramid by repeated average pooling of the raw
+            # coords, and per-level positional encodings normalised by the
+            # host level bounds: no parameter reaches either
+            coords_by_level = [batch.raw_coords]
+            for lv in range(1, 5):
+                coords_by_level.append(
+                    conv_ops.avg_pool2(coords_by_level[-1], levels[lv]))
+            pe_by_level = []
+            for lv in range(5):
+                bidx = levels[lv].coords[:, 0].long()
+                mn = batch.level_bounds[:, lv, 0][bidx]
+                mx = batch.level_bounds[:, lv, 1][bidx]
+                pe = self.pos_enc(coords_by_level[lv][None], mn[None],
+                                  mx[None])[0]
+                pe_by_level.append(pe * levels[lv].valid[:, None].to(pe.dtype))
 
         # mask features + segment mean-pool (kernel 3)
         mask_features = self.mask_features_head(pcd_features)
@@ -174,42 +215,53 @@ class Mask3D(nn.Module):
         queries = torch.zeros_like(query_pos)
 
         # pooled mask features per level: the block mask at level g is a
-        # linear readout of these with each round's mask embedding
-        vox_feats = mask_segments.reshape(B * S, D)[seg_flat]
-        vox_feats = vox_feats * valid0[:, None].to(vox_feats.dtype)
-        pooled_feats = [vox_feats]
-        for lv in range(1, 5):
-            pooled_feats.append(conv_ops.avg_pool2(pooled_feats[-1],
-                                                   levels[lv]))
+        # linear readout of these with each round's mask embedding, under a
+        # stopped gradient (mask3d.py:385-388), so no pool needs a backward
+        with torch.no_grad():
+            vox_feats = mask_segments.reshape(B * S, D)[seg_flat]
+            vox_feats = vox_feats * valid0[:, None].to(vox_feats.dtype)
+            pooled_feats = [vox_feats]
+            for lv in range(1, 5):
+                pooled_feats.append(conv_ops.avg_pool2(pooled_feats[-1],
+                                                       levels[lv]))
 
-        # eval: the per-level attention inputs are the same in every round
-        cached = []
-        for i, hlevel in enumerate(self.hlevels):
-            glevel = 4 - hlevel
-            sel = batch.scene_idx[glevel].long()
-            cached.append(dict(
-                sel_valid=batch.scene_valid[glevel],
-                pe=pe_by_level[glevel][sel],
+        def level_inputs(dd, i, sel_flat, sel_valid):
+            glevel = 4 - self.hlevels[i]
+            sel = sel_flat.long()
+            return dict(
+                sel_valid=sel_valid, pe=pe_by_level[glevel][sel],
                 pooled=pooled_feats[glevel][sel],
-                src=[sq[i](fpn[hlevel][sel].to(self.dtype))
-                     for sq in self.lin_squeeze]))
+                src=self.lin_squeeze[dd][i](
+                    fpn[self.hlevels[i]][sel].to(self.dtype)))
+
+        if not self.training:
+            # sampling is the identity: the per-level attention inputs are
+            # the same in every round
+            cached = [[level_inputs(dd, i, batch.scene_idx[4 - h],
+                                    batch.scene_valid[4 - h])
+                       for i, h in enumerate(self.hlevels)]
+                      for dd in range(len(self.lin_squeeze))]
 
         predictions_class, predictions_seg = [], []
         for d in range(self.num_decoders):
             dd = 0 if self.shared_decoder else d
-            for i in range(len(self.hlevels)):
+            for i, hlevel in enumerate(self.hlevels):
                 out_class, seg_logits, me = self._mask_module(
                     queries, mask_segments, batch.seg_valid)
                 predictions_class.append(out_class)
                 predictions_seg.append(seg_logits)
-                c = cached[i]
+                if not self.training:
+                    c = cached[dd][i]
+                else:
+                    c = level_inputs(dd, i, *_sample_level(
+                        batch, hlevel, self.sample_sizes[hlevel], generator))
                 blk = torch.einsum("bpd,bqd->bpq", c["pooled"],
-                                   me.to(c["pooled"].dtype))
+                                   me.detach().to(c["pooled"].dtype))
                 blocked = torch.sigmoid(blk) < 0.5
                 layers = (self.cross_attention[dd][i],
                           self.self_attention[dd][i], self.ffn[dd][i])
                 queries = _attend_level(layers, queries, query_pos, blocked,
-                                        c["sel_valid"], c["src"][dd], c["pe"])
+                                        c["sel_valid"], c["src"], c["pe"])
 
         out_class, seg_logits, _ = self._mask_module(queries, mask_segments,
                                                      batch.seg_valid)

@@ -2,9 +2,10 @@
 unscene3d_tpu/models/transformer_layers.py; XLA there, plain torch here).
 
 Dtype semantics follow flax: `Dense(dtype=None)` computes in the promotion of
-its input and f32 params (so f32), `Dense(dtype=bf16)` computes in bf16
-from params stored in bf16; `LayerNorm` normalises in f32 with epsilon 1e-6 and returns
-`dtype`, or the input/param promotion when `dtype` is None.
+its input and f32 params (so f32), `Dense(dtype=bf16)` computes in bf16,
+its params cast to bf16 at every call; `LayerNorm` normalises in f32 with
+epsilon 1e-6 and returns `dtype`, or the input/param promotion when `dtype`
+is None. Dropout is 0 (conf/model/mask3d.yaml) and has no layer here.
 """
 
 from __future__ import annotations
@@ -17,17 +18,19 @@ _NEG = torch.finfo(torch.float32).min / 2   # masked logit (not -inf)
 
 
 class Dense(nn.Linear):
-    """nn.Linear with flax Dense's compute-dtype rule. With a `dtype` the
-    weight and bias are stored in it, rounded once at load to the values
-    flax rounds its f32 params to at every call."""
+    """nn.Linear with flax Dense's compute-dtype rule: x, weight and bias are
+    cast to `dtype` (f32 when None) at every call. The params are stored in
+    `dtype` by construction (an eval model: rounded once at load to the
+    values flax rounds its f32 params to at every call, so the cast is a
+    no-op); a training model stores f32 masters (`model.float()`)."""
 
     def __init__(self, in_features: int, out_features: int, dtype=None):
         super().__init__(in_features, out_features, dtype=dtype)
         self.dtype = dtype
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype or torch.float32), self.weight,
-                        self.bias)
+        dt = self.dtype or torch.float32
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class LayerNorm(nn.LayerNorm):

@@ -10,9 +10,11 @@ initialisation.
   * `DenseGeneral` q/k/v kernels (D, H, dh) and biases (H, dh) are reshaped
     to (H*dh, D) / (H*dh,); out_proj kernels (H, dh, D) to (D, H*dh).
 `load_flax_variables` raises on any missing or unused key. It copies into
-params that are stored in their module's compute dtype, so under bf16 the
-sparse-conv kernels and the transformer layers' Dense params are rounded
-once here rather than at every forward.
+the model's params as they are stored: an eval model stores them in their
+module's compute dtype, so under bf16 the sparse-conv kernels and the
+transformer layers' Dense params are rounded once here rather than at every
+forward; a training model (train/loop.py, `model.float()`) keeps f32
+masters, so the JAX params and batch_stats come across unrounded.
 """
 
 from __future__ import annotations
@@ -84,6 +86,14 @@ def torch_state_from_flax(variables) -> dict[str, torch.Tensor]:
                 leaf = "weight"
             state[".".join(names + [leaf])] = torch.tensor(arr)
     return state
+
+
+def torch_params_from_flax(params) -> dict[str, torch.Tensor]:
+    """A flax-shaped `params` tree (the parameters, or their gradients or
+    updates) as {this package's parameter name: f32 tensor}, with the
+    layouts of `torch_state_from_flax`; tests compare gradients one to
+    one through it."""
+    return torch_state_from_flax({"params": params})
 
 
 def load_flax_variables(model: torch.nn.Module, variables) -> None:

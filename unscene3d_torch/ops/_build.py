@@ -1,12 +1,13 @@
 """Build and bind the hand-written CUDA kernels (`unscene3d_torch/csrc/*.cu`).
 
-The sources are compiled at first use with `nvcc` for `sm_90a` into one
-shared library with a plain C interface, under the repository's `build/`
-directory (gitignored), and loaded with ctypes. The file name carries a hash
-of the sources and flags, so an edit rebuilds and a warm tree reuses the
-library. Every pointer and the stream pass as `c_void_p`; each C entry point
-returns `cudaGetLastError()` after its launch, and `check` raises on a
-nonzero code. A failed build raises: there is no fallback.
+The sources are compiled at first use with `nvcc` for `sm_90a`, one nvcc
+process per source, all started together, and linked into one shared
+library with a plain C interface under the repository's `build/` directory
+(gitignored), then loaded with ctypes. The file name carries a hash of the
+sources and flags, so an edit rebuilds and a warm tree reuses the library.
+Every pointer and the stream pass as `c_void_p`; each C entry point returns
+`cudaGetLastError()` after its launch, and `check` raises on a nonzero
+code. A failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,11 @@ _SIGNATURES = {
     "k_apply_sum": [_P] * 4 + [_I] * 5 + [_P],
     # x, order, offsets, out, num_segments, c, is_bf16, stream
     "segment_sum": [_P] * 4 + [_I] * 3 + [_P],
+    # gm, wflip, nbr, valid, dx, n, cin, cout, is_bf16, stream
+    "conv3_bwd_dx": [_P] * 5 + [_I] * 4 + [_P],
+    # x, gm, nbr, partials, dw, n, cin, cout, splits, rows_per_split,
+    # is_bf16, stream
+    "conv3_dw": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _LOCK = threading.Lock()
@@ -73,15 +79,37 @@ def _compile(srcs: list[str], out: str) -> None:
     global build_seconds, build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(srcs, objs)]
+    logs, codes = [], []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=900)[0])
+            codes.append(p.returncode)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if not any(codes):
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True, timeout=300)
+        logs.append(link.stdout + link.stderr)
+        codes.append(link.returncode)
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
+    build_log = "".join(logs)
+    for path in objs:
+        if os.path.exists(path):
+            os.unlink(path)
+    if any(codes):
         if os.path.exists(tmp):
             os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({codes}):\n{build_log}")
     os.replace(tmp, out)
 
 

@@ -13,7 +13,9 @@ batch like `seg_counts`.
 
 `segment_sum` runs the plain twin `segment_sum_plain` for CPU tensors only.
 For a CUDA tensor it launches the kernel or raises; `segment_sum.launches`
-counts the launches.
+counts the launches. When x requires grad the sum runs inside an autograd
+Function whose backward is the gather g[ids[i]] * ok[i] in plain torch
+(segment_pool.py:_vjp_bwd).
 """
 
 from __future__ import annotations
@@ -57,11 +59,37 @@ def segment_sum_plain(x, ids, num_segments, valid=None):
     return out[:num_segments].to(x.dtype)
 
 
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ids, num_segments, valid, order, offsets):
+        ctx.save_for_backward(ids, valid)
+        ctx.num_segments = num_segments
+        ctx.dtype = x.dtype
+        return _segment_sum(x, ids, num_segments, valid, order, offsets)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, valid = ctx.saved_tensors
+        ids = ids.long()
+        ok = (ids >= 0) & (ids < ctx.num_segments)
+        if valid is not None:
+            ok = ok & valid
+        safe = torch.where(ok, ids, torch.zeros_like(ids))
+        dx = g[safe] * ok[:, None].to(g.dtype)
+        return dx.to(ctx.dtype), None, None, None, None, None
+
+
 def segment_sum(x, ids, num_segments, valid, order, offsets):
     """x: (N, C) f32/bf16; ids: (N,) int; valid: (N,) bool or None;
     order/offsets: `segment_order(ids, num_segments, valid)` as int32
     tensors on x's device, the rows the CUDA kernel walks (the twin reads
     ids and valid instead). Returns (num_segments, C) in x.dtype."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SegmentSum.apply(x, ids, num_segments, valid, order, offsets)
+    return _segment_sum(x, ids, num_segments, valid, order, offsets)
+
+
+def _segment_sum(x, ids, num_segments, valid, order, offsets):
     if x.device.type == "cpu":
         return segment_sum_plain(x, ids, num_segments, valid)
     if x.device.type != "cuda":
