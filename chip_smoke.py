@@ -1,14 +1,17 @@
 """GPU smoke run of the PyTorch port: builds the CUDA kernels, holds each
 against its plain twin at main-path shapes, drives the eval path through
 `unscene3d_torch.inference` on the bench scene and the train path through
-`unscene3d_torch.train.loop` on bench.py's batch-8 train batch, and checks
-card-vs-CPU parity of both on a mid-size scene.
+`unscene3d_torch.train.loop` on bench.py's batch-8 train batch, both in the
+default configuration (kernels 1-5) and with `csr_levels=(0, 1, 2)` (kernel
+6 at those levels), the brick conv engine (kernel 7) on the bench scene's
+level 0, and checks card-vs-CPU parity on a mid-size scene.
 
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU and nvcc; exits nonzero without them. Phases print one
 line each; the line before the last is a JSON object of per-kernel numbers
-measured in this run, and the last line is the contract line
+measured in this run (`bound_ms` computed from this run's inputs against
+the H100's published peaks), and the last line is the contract line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -30,6 +33,12 @@ BENCH_SCENE = dict(num_points=250_000, num_objects=12, extent=8.0)
 TRAIN_SCENE = dict(num_points=125_000, num_objects=12, extent=8.0)
 TRAIN_BATCH = 8
 TRAIN_STEPS = 5          # timed, after one warm-up step
+CSR_LEVELS = (0, 1, 2)   # the csr012 variant of benchmarks/profile_fwd.py
+CSR_TRAIN_STEPS = 3      # timed csr_levels steps, after one warm-up step
+# published peaks of one H100 SXM (dense): bytes/s of HBM3 and FLOP/s by
+# the type of the products (bf16 tensor cores; f32 outside them)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 VOXEL = 0.02
 # tolerances relative to max|twin|: f32 differs by summation order only.
 # Kernel and twin both sum bf16 inputs in f32 and round once, so a bf16
@@ -62,17 +71,31 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                   "unscene3d_tpu/ops/window_conv.py:621"),
     "conv3_dw": ("unscene3d_torch/csrc/conv3_bwd.cu",
                  "unscene3d_tpu/ops/window_conv.py:548"),
+    "csr_conv3": ("unscene3d_torch/csrc/csr_conv.cu",
+                  "unscene3d_tpu/ops/csr_conv.py:150"),
+    "brick_conv3": ("unscene3d_torch/csrc/brick_conv.cu",
+                    "unscene3d_tpu/ops/brick_engine.py:176"),
 }
 # launches per eval forward of Mask3D(Res16UNet34C): 1 stem + 23 blocks x 2
 # k3 convs; 4 down2 + 4 up2; 4 coordinate + 4 mask-feature pools; 1 pool
 PER_FORWARD = {"conv3_fwd": 47, "k_apply_gemm": 8, "k_apply_sum": 8,
-               "segment_sum": 1, "conv3_bwd": 0, "conv3_dw": 0}
+               "segment_sum": 1, "conv3_bwd": 0, "conv3_dw": 0,
+               "csr_conv3": 0, "brick_conv3": 0}
+# with csr_levels=(0, 1, 2): the stem and the 22 block convs of levels 0-2
+# go through kernel 6, the 24 of levels 3 and 4 through kernel 1
+PER_FORWARD_CSR = dict(PER_FORWARD, conv3_fwd=24, csr_conv3=23)
 # launches per train step (remat on): k3 forward 47 + 46 recomputed in the
 # 23 blocks' backward; dx of every k3 conv but the stem (its input features
 # need no gradient) and dW of all 47; k2 convs 8 forward + 8 dx; the same 8
 # pools and 1 segment sum (the pooled readout is under a stopped gradient)
 PER_TRAIN_STEP = {"conv3_fwd": 93, "conv3_bwd": 46, "conv3_dw": 47,
-                  "k_apply_gemm": 16, "k_apply_sum": 8, "segment_sum": 1}
+                  "k_apply_gemm": 16, "k_apply_sum": 8, "segment_sum": 1,
+                  "csr_conv3": 0, "brick_conv3": 0}
+# with csr_levels=(0, 1, 2): kernel 6 runs 23 forward + 22 recomputed + 22
+# dx (none for the stem); kernel 1 24 + 24 recomputed, kernels 4 and 5 at the
+# 24 convs of levels 3 and 4; the 23 CSR dW are csr_dw in plain torch
+PER_TRAIN_STEP_CSR = dict(PER_TRAIN_STEP, conv3_fwd=48, conv3_bwd=24,
+                          conv3_dw=24, csr_conv3=67)
 
 
 def log(msg: str) -> None:
@@ -97,13 +120,35 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def counters():
+    from unscene3d_torch.ops.brick_engine import brick_conv3
     from unscene3d_torch.ops.conv3 import conv3_bwd, conv3_dw, conv3_fwd
+    from unscene3d_torch.ops.csr_conv import csr_conv3_fwd
     from unscene3d_torch.ops.k_apply import k_apply_gemm, k_apply_sum
     from unscene3d_torch.ops.segment_pool import segment_sum
 
     return {"conv3_fwd": conv3_fwd, "k_apply_gemm": k_apply_gemm,
             "k_apply_sum": k_apply_sum, "segment_sum": segment_sum,
-            "conv3_bwd": conv3_bwd, "conv3_dw": conv3_dw}
+            "conv3_bwd": conv3_bwd, "conv3_dw": conv3_dw,
+            "csr_conv3": csr_conv3_fwd, "brick_conv3": brick_conv3}
+
+
+def reset_counters():
+    cnt = counters()
+    for fn in cnt.values():
+        fn.launches = 0
+    return cnt
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors (None skipped): each input read once, each
+    output written once."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def hits(table) -> int:
+    """Entries of a neighbour / child / parent map that are no miss (misses
+    point at the map's largest row)."""
+    return int((table != table.max()).sum().item())
 
 
 def phase_device():
@@ -134,8 +179,15 @@ def phase_build():
         log(f"  ptxas {ln}")
 
 
-def _compare(name, dtype, kernel, twin, tol=None):
-    """Run kernel twice (bitwise equal), compare with the twin, time both."""
+def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
+             other=None):
+    """Run kernel twice (bitwise equal), compare with the twin, time both.
+    work = (bytes moved, FLOPs done, dtype of the products) gives the bound:
+    the larger of bytes over the card's memory rate and FLOPs over its peak
+    rate for that type. library: one PyTorch call computing the same
+    function, timed only. other = (name, fn): another kernel of the port
+    that computes the same function, held to the same tolerance and
+    timed."""
     got = kernel()
     again = kernel()
     torch.cuda.synchronize()
@@ -146,12 +198,36 @@ def _compare(name, dtype, kernel, twin, tol=None):
     scale = max(ref.float().abs().max().item(), 1e-6)
     tol = KERNEL_TOL[dtype] if tol is None else tol
     ms, plain_ms = cuda_ms(kernel), cuda_ms(twin)
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=None,
+               bound_by=None, library_ms=None)
+    extra = ""
+    if work is not None:
+        moved, flops, kind = work
+        by_bytes = 1e3 * moved / PEAK_BYTES
+        by_ops = 1e3 * flops / PEAK_FLOPS[kind]
+        out["bound_ms"] = max(by_bytes, by_ops)
+        out["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        extra += (f" bound_ms={out['bound_ms']:.4f} ({out['bound_by']}: "
+                  f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    if library is not None:
+        out["library_ms"] = cuda_ms(library)
+        extra += f" library_ms={out['library_ms']:.3f}"
+    if other is not None:
+        other_name, other_fn = other
+        alt = other_fn()
+        other_err = (got.float() - alt.float()).abs().max().item()
+        out["other_ms"] = cuda_ms(other_fn)
+        extra += (f" vs {other_name}: max_rel_err={other_err / scale:.3e} "
+                  f"{other_name}_ms={out['other_ms']:.3f}")
+        if not other_err <= tol * scale:
+            raise AssertionError(f"{name} {dtype} vs {other_name}: error "
+                                 f"{other_err} > {tol} * {scale}")
     log(f"  {name:44s} {str(dtype)[6:]:8s} max_abs_err={err:.3e} "
         f"max_rel_err={err / scale:.3e} (tol {tol:g}) ms={ms:.3f} "
-        f"plain_ms={plain_ms:.3f}")
+        f"plain_ms={plain_ms:.3f}{extra}")
     if not err <= tol * scale:
         raise AssertionError(f"{name} {dtype}: error {err} > {tol} * {scale}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return out
 
 
 def phase_kernels(dev, batch):
@@ -182,14 +258,21 @@ def phase_kernels(dev, batch):
                 + (" +scale/shift+res+relu" if epi else " +scale/shift+relu"),
                 dtype,
                 lambda: conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw),
-                lambda: conv3_fwd_plain(x, w, lvl.nbr_idx, lvl.valid, **kw))
+                lambda: conv3_fwd_plain(x, w, lvl.nbr_idx, lvl.valid, **kw),
+                work=(nbytes(x, w, lvl.nbr_idx, lvl.valid, kw["scale"],
+                             kw["shift"], kw.get("residual"))
+                      + n * cout * x.element_size(),
+                      2 * hits(lvl.nbr_idx) * cin * cout, dtype))
         # k2 down conv L0 -> L1 (conv1p1s2, 32 -> 32)
         x = torch.randn(L[0].num_padded, 32, generator=g).to(dev, dtype)
         w = (torch.randn(8, 32, 32, generator=g) / 32 ** 0.5).to(dev, dtype)
         res["k_apply_gemm"][("down", dtype)] = _compare(
             "k_apply_gemm down2 L0->L1 32->32", dtype,
             lambda: k_apply(x, L[1].child_idx, w, L[1].valid),
-            lambda: k_apply_plain(x, L[1].child_idx, w, L[1].valid))
+            lambda: k_apply_plain(x, L[1].child_idx, w, L[1].valid),
+            work=(nbytes(x, w, L[1].child_idx, L[1].valid)
+                  + L[1].num_padded * 32 * x.element_size(),
+                  2 * hits(L[1].child_idx) * 32 * 32, dtype))
         # k2 transposed up conv L1 -> L0 (convtr7p2s2, 96 -> 96)
         table = L[0].up_idx
         xu = torch.randn(L[1].num_padded, 96, generator=g).to(dev, dtype)
@@ -197,25 +280,39 @@ def phase_kernels(dev, batch):
         res["k_apply_gemm"][("up", dtype)] = _compare(
             "k_apply_gemm up2 L1->L0 96->96", dtype,
             lambda: k_apply(xu, table, wu, L[0].valid),
-            lambda: k_apply_plain(xu, table, wu, L[0].valid))
+            lambda: k_apply_plain(xu, table, wu, L[0].valid),
+            work=(nbytes(xu, wu, table, L[0].valid)
+                  + L[0].num_padded * 96 * xu.element_size(),
+                  2 * hits(table) * 96 * 96, dtype))
         # 8-child pool sums: coordinates (C=3) and mask features (C=128)
         for c in (3, 128):
             xp = torch.randn(L[0].num_padded, c, generator=g).to(dev, dtype)
             res["k_apply_sum"][(c, dtype)] = _compare(
                 f"k_apply_sum pool L0->L1 C={c}", dtype,
                 lambda: k_apply(xp, L[1].child_idx, None, L[1].valid),
-                lambda: k_apply_plain(xp, L[1].child_idx, None, L[1].valid))
+                lambda: k_apply_plain(xp, L[1].child_idx, None, L[1].valid),
+                work=(nbytes(xp, L[1].child_idx, L[1].valid)
+                      + L[1].num_padded * c * xp.element_size(),
+                      hits(L[1].child_idx) * c, torch.float32))
         # segment mean-pool sum (204800, 128) -> (320, 128)
         S = batch.batch_size * batch.num_segments_padded
         seg_flat = (L[0].coords[:, 0].long() * batch.num_segments_padded
                     + batch.point2segment.to(dev).long())
         xs = torch.randn(L[0].num_padded, 128, generator=g).to(dev, dtype)
         order, offsets = batch.seg_order.to(dev), batch.seg_offsets.to(dev)
+        # the library call: one index_add_ of all rows into S + 1 segments,
+        # the last one collecting the invalid rows (atomics: not
+        # deterministic, so nothing in the port calls it on the card)
+        dump = torch.where(L[0].valid, seg_flat, S)
+        pooled = torch.zeros(S + 1, 128, dtype=dtype, device=dev)
         res["segment_sum"][dtype] = _compare(
             f"segment_sum ({L[0].num_padded},128)->({S},128)", dtype,
             lambda: segment_sum(xs, seg_flat, S, L[0].valid, order=order,
                                 offsets=offsets),
-            lambda: segment_sum_plain(xs, seg_flat, S, L[0].valid))
+            lambda: segment_sum_plain(xs, seg_flat, S, L[0].valid),
+            work=(nbytes(xs, order, offsets) + S * 128 * xs.element_size(),
+                  int(L[0].valid.sum().item()) * 128, torch.float32),
+            library=lambda: pooled.zero_().index_add_(0, dump, xs))
     return res
 
 
@@ -232,9 +329,7 @@ def phase_slice(dev):
     requests = [(torch.bfloat16, 0), (torch.bfloat16, 1),
                 (torch.bfloat16, 2), (torch.float32, 0)]
 
-    cnt = counters()
-    for fn in cnt.values():
-        fn.launches = 0
+    cnt = reset_counters()
     served = []
     for dt, i in requests:
         p = preds[dt]
@@ -364,7 +459,7 @@ def phase_parity(dev, model32):
     log(f"parity scene: voxels={meta.num_voxels[0]}")
 
 
-def train_batch():
+def train_batch(csr_levels=()):
     """bench.py's train batch: 8 x make_scene(125k points, 12 objects, 8 m),
     voxel 0.02, with instance targets, host FPS seeds for 100 queries."""
     from unscene3d_torch.data.collate import FreeMaskCollator
@@ -373,8 +468,10 @@ def train_batch():
     t0 = time.perf_counter()
     scenes = [make_scene(**TRAIN_SCENE, seed=100 + i)
               for i in range(TRAIN_BATCH)]
-    batch, meta = FreeMaskCollator(voxel_size=VOXEL, fps_queries=100)(scenes)
-    log(f"train batch collate: {time.perf_counter() - t0:.1f}s, voxels "
+    batch, meta = FreeMaskCollator(voxel_size=VOXEL, fps_queries=100,
+                                   csr_levels=csr_levels)(scenes)
+    log(f"train batch collate (csr_levels={csr_levels}): "
+        f"{time.perf_counter() - t0:.1f}s, voxels "
         f"{meta.num_voxels} (rows per level "
         f"{[lv.num_padded for lv in batch.graph.levels]}), targets "
         f"{tuple(batch.target.labels.shape)}")
@@ -400,15 +497,20 @@ def phase_train_kernels(dev, batch):
             gm = (torch.randn(n, cout, generator=g).to(dev)
                   * lvl.valid[:, None]).to(dtype)
             args = (x, gm, w, lvl.nbr_idx, lvl.valid)
+            pairs = hits(lvl.nbr_idx)
             res["conv3_bwd"][(lv, cin, cout, dtype)] = _compare(
                 f"conv3_bwd (dx + dW) L{lv} {cin}->{cout}, dx", dtype,
                 lambda: conv3_bwd(*args)[0],
-                lambda: conv3_bwd_plain(*args)[0])
+                lambda: conv3_bwd_plain(*args)[0],
+                work=(nbytes(x, x, gm, w, w, lvl.nbr_idx, lvl.valid),
+                      4 * pairs * cin * cout, dtype))
             res["conv3_dw"][(lv, cin, cout, dtype)] = _compare(
                 f"conv3_dw L{lv} {cin}->{cout} (f32 out)", dtype,
                 lambda: conv3_dw(x, gm, lvl.nbr_idx),
                 lambda: conv3_dw_plain(x, gm, lvl.nbr_idx),
-                tol=DW_TOL[dtype])
+                tol=DW_TOL[dtype],
+                work=(nbytes(x, gm, lvl.nbr_idx) + 27 * cin * cout * 4,
+                      2 * pairs * cin * cout, dtype))
             del x, w, gm, args
     return res
 
@@ -428,9 +530,7 @@ def phase_train(dev, batch):
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cnt = counters()
-    for fn in cnt.values():
-        fn.launches = 0
+    cnt = reset_counters()
     times = []
     for step in range(1 + TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -514,6 +614,331 @@ def phase_train_profile(trainer, batch, gen):
         f"{sum(r[2] for r in rows)} device ops per step")
     for ms, name, n in rows[:12]:
         log(f"  {ms:8.2f}ms {100 * ms / busy:5.1f}%  x{n:<4d} {name[:90]}")
+
+def phase_csr_kernels(dev, batch, tbatch):
+    """Kernel 6 against its twin and against kernel 1 on the same inputs
+    (the same function), at the shapes the csr_levels paths give it: the
+    bench scene's levels for the forward, the train batch's level 0 for dx
+    (kernel 6 over gm with flip-transposed weights). csr_dw (plain torch)
+    is timed beside kernel 5 there."""
+    from unscene3d_torch.ops.conv3 import (conv3_dw, conv3_fwd,
+                                           flip_transpose)
+    from unscene3d_torch.ops.csr_conv import (csr_conv3_fwd,
+                                              csr_conv3_fwd_plain, csr_dw)
+
+    L = [lv.to(dev) for lv in batch.graph.levels]
+    log("kernel 6 vs its twin and vs kernel 1 at the csr_levels bench "
+        f"scene's shapes (rows per level {[lv.num_padded for lv in L]}, "
+        f"pairs {[lv.csr.num_pairs if lv.csr else None for lv in L]})")
+    g = torch.Generator().manual_seed(2)
+    res = {}
+
+    def work(x, w, lvl, cout, *epi):
+        csr = lvl.csr
+        return (nbytes(x, w, csr.pair_in, csr.pair_out, csr.tile_start,
+                       lvl.valid, *epi)
+                + x.shape[0] * cout * x.element_size(),
+                2 * (csr.num_pairs + int(lvl.valid.sum().item()))
+                * x.shape[1] * cout, x.dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for lv, cin, cout, epi in ((0, 128, 96, True), (0, 3, 32, False),
+                                   (2, 128, 128, False)):
+            lvl = L[lv]
+            n = lvl.num_padded
+            x = torch.randn(n, cin, generator=g).to(dev, dtype)
+            w = (torch.randn(27, cin, cout, generator=g)
+                 / cin ** 0.5).to(dev, dtype)
+            kw = dict(scale=torch.rand(cout, generator=g).add(0.5).to(dev),
+                      shift=torch.randn(cout, generator=g).to(dev), relu=True)
+            if epi:
+                kw["residual"] = torch.randn(n, cout, generator=g).to(dev,
+                                                                      dtype)
+            res[(lv, cin, cout, dtype)] = _compare(
+                f"csr_conv3 L{lv} {cin}->{cout}"
+                + (" +scale/shift+res+relu" if epi else " +scale/shift+relu"),
+                dtype,
+                lambda: csr_conv3_fwd(x, w, lvl.csr, lvl.valid, **kw),
+                lambda: csr_conv3_fwd_plain(x, w, lvl.csr, lvl.valid, **kw),
+                work=work(x, w, lvl, cout, kw["scale"], kw["shift"],
+                          kw.get("residual")),
+                other=("conv3_fwd", lambda: conv3_fwd(x, w, lvl.nbr_idx,
+                                                      lvl.valid, **kw)))
+        # the backward at the train batch's level 0, 128 -> 96
+        lvl = tbatch.graph.levels[0].to(dev)
+        n, cin, cout = lvl.num_padded, 128, 96
+        x = torch.randn(n, cin, generator=g).to(dev, dtype)
+        w = (torch.randn(27, cin, cout, generator=g)
+             / cin ** 0.5).to(dev, dtype)
+        gm = (torch.randn(n, cout, generator=g).to(dev)
+              * lvl.valid[:, None]).to(dtype)
+        wf = flip_transpose(w)
+        res[("dx", dtype)] = _compare(
+            f"csr_conv3 as dx, train L0 {cin}->{cout}", dtype,
+            lambda: csr_conv3_fwd(gm, wf, lvl.csr, lvl.valid),
+            lambda: csr_conv3_fwd_plain(gm, wf, lvl.csr, lvl.valid),
+            work=work(gm, wf, lvl, cin),
+            other=("conv3_fwd", lambda: conv3_fwd(gm, wf, lvl.nbr_idx,
+                                                  lvl.valid)))
+        dw, dw5 = csr_dw(x, gm, lvl.csr), conv3_dw(x, gm, lvl.nbr_idx)
+        err = (dw - dw5).abs().max().item() / dw5.abs().max().item()
+        dw_ms = cuda_ms(lambda: csr_dw(x, gm, lvl.csr), reps=5)
+        k5_ms = cuda_ms(lambda: conv3_dw(x, gm, lvl.nbr_idx), reps=5)
+        log(f"  csr_dw (plain torch) train L0 {cin}->{cout} "
+            f"{str(dtype)[6:]:8s} vs conv3_dw (kernel 5): max_rel_err="
+            f"{err:.3e} (tol {DW_TOL[dtype]:g}) csr_dw_ms={dw_ms:.3f} "
+            f"conv3_dw_ms={k5_ms:.3f}")
+        if not err <= DW_TOL[dtype]:
+            raise AssertionError(f"csr_dw vs conv3_dw {dtype}: {err}")
+        del x, w, gm, wf, dw, dw5, lvl
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_brick(dev, batch):
+    """Kernel 7 at the bench scene's level-0 brick graph: against its twin
+    with the whole epilogue; disassemble(brick_conv3(assemble(x))) against
+    kernel 1 (the same function); then the engine's own path, a two-conv
+    chain with halo_exchange between, against two launches of kernel 1. The
+    launch count is read around exactly that chain. The library call is one
+    dense conv3d over the halo'd 10^3 bricks (the products only: no
+    epilogue, no occupancy mask)."""
+    from unscene3d_torch.ops import brick_engine as be
+    from unscene3d_torch.ops.conv3 import conv3_fwd
+
+    lvl = batch.graph.levels[0]
+    t0 = time.perf_counter()
+    bg = be.build_brick_graph(lvl.coords.numpy(), lvl.valid.numpy()).to(dev)
+    lvl = lvl.to(dev)
+    occ = bg.occ
+    win = slice(be.WIN_LO, be.WIN_LO + be.WIN_N)
+    pairs = sum(int((occ[:, win] & occ[:, be.WIN_LO + d:be.WIN_LO + d
+                                       + be.WIN_N]).sum().item())
+                for d in be.K3_DELTAS)
+    log(f"kernel 7 at the bench scene's L0 brick graph: {bg.nb_pad} bricks "
+        f"(built in {time.perf_counter() - t0:.2f}s), "
+        f"{occ.float().mean().item():.1%} of the cells occupied, {pairs} "
+        "occupied (cell, neighbour) pairs")
+    g = torch.Generator().manual_seed(3)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (32, 96):
+            x = (torch.randn(lvl.num_padded, c, generator=g).to(dev)
+                 * lvl.valid[:, None]).to(dtype)
+            w = (torch.randn(27, c, c, generator=g) / c ** 0.5).to(dev, dtype)
+            gb = be.assemble(x, bg)
+            kw = dict(scale=torch.rand(c, generator=g).add(0.5).to(dev),
+                      offset=torch.randn(c, generator=g).to(dev),
+                      residual=be.assemble(
+                          (torch.randn(lvl.num_padded, c, generator=g).to(dev)
+                           * lvl.valid[:, None]).to(dtype), bg), relu=True)
+            dense = gb[:, :1000].view(bg.nb_pad, 10, 10, 10, c).permute(
+                0, 4, 1, 2, 3)       # NCDHW view of channels-last bricks
+            w5 = w.view(3, 3, 3, c, c).permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            res[(c, dtype)] = _compare(
+                f"brick_conv3 L0 {c}->{c} +scale/offset+res+relu", dtype,
+                lambda: be.brick_conv3(gb, w, bg, **kw),
+                lambda: be.brick_conv3_plain(gb, w, bg, kw["scale"],
+                                             kw["offset"], kw["residual"],
+                                             True),
+                work=(nbytes(gb, w, bg.asm_idx, kw["scale"], kw["offset"],
+                             kw["residual"], gb), 2 * pairs * c * c, dtype),
+                library=lambda: torch.nn.functional.conv3d(dense, w5))
+            flat = be.disassemble(be.brick_conv3(gb, w, bg), bg, lvl)
+            ref = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid)
+            err = (flat.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            eng_ms = cuda_ms(lambda: be.disassemble(
+                be.brick_conv3(be.assemble(x, bg), w, bg), bg, lvl), reps=5)
+            k1_ms = cuda_ms(lambda: conv3_fwd(x, w, lvl.nbr_idx, lvl.valid),
+                            reps=5)
+            log(f"  disassemble(brick_conv3(assemble(x))) {c}->{c} "
+                f"{str(dtype)[6:]:8s} vs conv3_fwd: max_rel_err="
+                f"{err / scale:.3e} (tol {KERNEL_TOL[dtype]:g}) "
+                f"engine_ms={eng_ms:.3f} conv3_fwd_ms={k1_ms:.3f}")
+            if not err <= KERNEL_TOL[dtype] * scale:
+                raise AssertionError(f"brick engine vs kernel 1 {c} {dtype}: "
+                                     f"{err} > {KERNEL_TOL[dtype]} * {scale}")
+            del gb, kw, dense, flat, ref
+            torch.cuda.empty_cache()
+
+    # the engine's path: conv, halo exchange, conv (bf16 and f32, 32 wide)
+    cnt = reset_counters()
+    chains = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(lvl.num_padded, 32, generator=g).to(dev)
+             * lvl.valid[:, None]).to(dtype)
+        w1, w2 = ((torch.randn(27, 32, 32, generator=g) / 32 ** 0.5).to(
+            dev, dtype) for _ in range(2))
+        t0 = time.perf_counter()
+        g1 = be.halo_exchange(be.brick_conv3(be.assemble(x, bg), w1, bg), bg)
+        y2 = be.disassemble(be.brick_conv3(g1, w2, bg), bg, lvl)
+        torch.cuda.synchronize()
+        chains.append((dtype, x, w1, w2, y2, 1e3 * (time.perf_counter() - t0)))
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    log(f"brick path: 2 chains of 2 convs, launches {launches}")
+    if launches["brick_conv3"] != 4 or any(
+            v for k, v in launches.items() if k != "brick_conv3"):
+        raise AssertionError(f"brick path launches {launches}")
+    for dtype, x, w1, w2, y2, ms in chains:
+        ref = conv3_fwd(conv3_fwd(x, w1, lvl.nbr_idx, lvl.valid), w2,
+                        lvl.nbr_idx, lvl.valid)
+        if not torch.isfinite(y2).all() or y2.shape != ref.shape:
+            raise AssertionError(f"brick chain {dtype}: bad output")
+        err = (y2.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        # two convs: the second reads the first one's rounded output
+        tol = 2 * KERNEL_TOL[dtype]
+        log(f"  chain conv-halo-conv 32->32->32 {str(dtype)[6:]:8s} vs two "
+            f"conv3_fwd: max_rel_err={err / scale:.3e} (tol {tol:g}) "
+            f"first run {ms:.1f}ms")
+        if not err <= tol * scale:
+            raise AssertionError(f"brick chain {dtype}: {err} > {tol} * "
+                                 f"{scale}")
+    return res, launches
+
+
+def phase_slice_csr(dev, scene, preds):
+    """The eval path with csr_levels=(0, 1, 2): the bench scene through
+    Predictor(build_mask3d(bf16), csr_levels=...), launch counts read around
+    exactly this request; then the warm forward beside the default
+    configuration's on the same scene, and the f32 forward with csr_levels
+    against the f32 forward of the default configuration on the parity
+    scene (same weights, both on the card)."""
+    from unscene3d_torch.data.synthetic import make_scene
+    from unscene3d_torch.inference import Predictor, build_mask3d, postprocess
+
+    p = Predictor(build_mask3d(torch.bfloat16, seed=0), dev, voxel_size=VOXEL,
+                  csr_levels=CSR_LEVELS)
+    cnt = reset_counters()
+    t0 = time.perf_counter()
+    batch, meta = p.collator([scene])
+    t1 = time.perf_counter()
+    batch = batch.to(dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = p.model(batch)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    inst = postprocess(out, meta)
+    t4 = time.perf_counter()
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    log(f"csr_levels={CSR_LEVELS} eval path: 1 request, launches {launches}")
+    for k, per in PER_FORWARD_CSR.items():
+        if launches[k] != per:
+            raise AssertionError(f"{k}: {launches[k]} launches, expected "
+                                 f"{per} per csr_levels forward")
+    for key in ("pred_logits", "pred_masks_seg", "pred_masks_vox"):
+        if not torch.isfinite(out[key]).all():
+            raise AssertionError(f"csr_levels {key} not finite")
+    if (out["pred_logits"].shape != (13, 1, 100, 3)
+            or inst["masks"].shape != (len(scene["xyz"]), 100)):
+        raise AssertionError("csr_levels eval path: bad output shapes")
+    warm = cuda_ms(lambda: p.model(batch), reps=5, warmup=1)
+    base_batch = preds[torch.bfloat16].collator([scene])[0].to(dev)
+    base = cuda_ms(lambda: preds[torch.bfloat16].model(base_batch), reps=5,
+                   warmup=1)
+    warm2 = cuda_ms(lambda: p.model(batch), reps=5, warmup=1)
+    log(f"scene 0 bf16 csr_levels={CSR_LEVELS}: voxels={meta.num_voxels[0]} "
+        f"collate={1e3 * (t1 - t0):.0f}ms h2d={1e3 * (t2 - t1):.0f}ms "
+        f"forward(first)={1e3 * (t3 - t2):.1f}ms forward(warm, median of 5)="
+        f"{warm:.1f}ms, again {warm2:.1f}ms; default configuration between "
+        f"them {base:.1f}ms; post={1e3 * (t4 - t3):.0f}ms "
+        f"e2e={1e3 * (t4 - t0):.0f}ms instances={len(inst['scores'])}")
+    del p, batch, base_batch, out
+
+    small = make_scene(num_points=30_000, num_objects=6, extent=4.0, seed=7)
+    model32 = preds[torch.float32].model
+    ref = model32(preds[torch.float32].collator([small])[0].to(dev))
+    got = Predictor(model32, dev, voxel_size=VOXEL,
+                    csr_levels=CSR_LEVELS).forward(small)[0]
+    for key in ("pred_logits", "pred_masks_seg", "pred_masks_vox"):
+        a, b = got[key].float(), ref[key].float()
+        if key == "pred_masks_vox":   # level 0 is padded to other row counts
+            n = min(a.shape[0], b.shape[0])
+            a, b = a[:n], b[:n]
+        err = (a - b).abs().max().item()
+        scale = max(b.abs().max().item(), 1e-6)
+        log(f"  csr_levels vs default, f32, parity scene {key}: "
+            f"max_rel_err={err / scale:.3e} (tol {SLICE_TOL:g})")
+        if not err <= SLICE_TOL * scale:
+            raise AssertionError(f"csr_levels vs default {key}: {err} > "
+                                 f"{SLICE_TOL} * {scale}")
+    return launches
+
+
+def phase_train_csr(dev, batch):
+    """The train path with csr_levels=(0, 1, 2): build_trainer(bf16) on the
+    8-scene batch collated with those levels, one warm-up step and
+    CSR_TRAIN_STEPS timed ones, launch counts read around exactly these
+    steps; then one more step with CUDA events around every csr_dw call for
+    its share of the step."""
+    from unscene3d_torch.ops import conv_ops
+    from unscene3d_torch.train.loop import build_trainer
+
+    trainer = build_trainer(torch.bfloat16, seed=0, device=dev)
+    before = [p.detach().clone() for p in trainer.params]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cnt = reset_counters()
+    times = []
+    n_steps = 1 + CSR_TRAIN_STEPS
+    for step in range(n_steps):
+        t0 = time.perf_counter()
+        losses = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        for key in ("loss_ce", "loss_mask", "loss_dice", "total"):
+            if not torch.isfinite(losses[key]).all():
+                raise AssertionError(f"csr_levels train step {step}: {key} "
+                                     "not finite")
+        log(f"  csr_levels step {step}: {times[-1]:.1f}ms total="
+            f"{losses['total'].item():.4f}")
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"csr_levels={CSR_LEVELS} train path: {n_steps} steps, launches "
+        f"{launches}")
+    for k, per in PER_TRAIN_STEP_CSR.items():
+        if launches[k] != per * n_steps:
+            raise AssertionError(f"{k}: {launches[k]} launches, expected "
+                                 f"{per} per csr_levels train step x "
+                                 f"{n_steps}")
+    unchanged = [n for a, (n, p) in zip(before,
+                                        trainer.model.named_parameters())
+                 if torch.equal(a, p)]
+    if unchanged != ["backbone.final.bias"]:
+        raise AssertionError(f"csr_levels: params unchanged after {n_steps} "
+                             f"steps: {unchanged}")
+    events = []
+    plain_dw = conv_ops.csr_dw
+
+    def timed_dw(*args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = plain_dw(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    conv_ops.csr_dw = timed_dw
+    try:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        conv_ops.csr_dw = plain_dw
+    dw_ms = sum(a.elapsed_time(b) for a, b in events)
+    warm = statistics.median(times[1:])
+    log(f"train bf16, batch {TRAIN_BATCH}, csr_levels={CSR_LEVELS}: first "
+        f"step {times[0]:.1f}ms, warm median of {CSR_TRAIN_STEPS} "
+        f"{warm:.1f}ms (min {min(times[1:]):.1f}, max {max(times[1:]):.1f}) "
+        f"= {1e3 * TRAIN_BATCH / warm:.2f} scenes/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; csr_dw {len(events)} calls, {dw_ms:.1f}ms "
+        f"of a {step_ms:.1f}ms step ({dw_ms / step_ms:.1%})")
+    return launches
 
 
 class _Pinned:
@@ -669,24 +1094,37 @@ def main() -> int:
     from unscene3d_torch.data.collate import FreeMaskCollator
     from unscene3d_torch.data.synthetic import make_scene
 
-    t0 = time.perf_counter()
-    batch, _ = FreeMaskCollator(voxel_size=VOXEL, fine_buckets=True,
-                                fps_queries=100)(
-        [make_scene(**BENCH_SCENE, seed=0)])
-    log(f"bench scene collate: {time.perf_counter() - t0:.2f}s")
-    res = phase_kernels(dev, batch)
-    launches_eval, preds, served = phase_slice(dev)
+    scene0 = make_scene(**BENCH_SCENE, seed=0)
+    batches = {}
+    for csr_levels in ((), CSR_LEVELS):
+        t0 = time.perf_counter()
+        batches[csr_levels], _ = FreeMaskCollator(
+            voxel_size=VOXEL, fine_buckets=True, fps_queries=100,
+            csr_levels=csr_levels)([scene0])
+        log(f"bench scene collate (csr_levels={csr_levels}): "
+            f"{time.perf_counter() - t0:.2f}s")
+    res = phase_kernels(dev, batches[()])
+    launches = {}
+    launches["eval"], preds, served = phase_slice(dev)
     phase_profile(preds, served)
     phase_parity(dev, preds[torch.float32].model)
-    del preds, served, batch
+    del served
+    res["brick_conv3"], launches["brick"] = phase_brick(dev, batches[()])
+    launches["eval_csr"] = phase_slice_csr(dev, scene0, preds)
+    del preds
     torch.cuda.empty_cache()
 
     tbatch = train_batch()
+    tbatch_csr = train_batch(CSR_LEVELS)
     res.update(phase_train_kernels(dev, tbatch))
+    res["csr_conv3"] = phase_csr_kernels(dev, batches[CSR_LEVELS], tbatch_csr)
     tbatch = tbatch.to(dev)
-    launches_train, trainer, gen = phase_train(dev, tbatch)
+    launches["train"], trainer, gen = phase_train(dev, tbatch)
     phase_train_profile(trainer, tbatch, gen)
     del trainer, tbatch
+    torch.cuda.empty_cache()
+    launches["train_csr"] = phase_train_csr(dev, tbatch_csr.to(dev))
+    del tbatch_csr
     torch.cuda.empty_cache()
     phase_train_parity(dev)
 
@@ -695,17 +1133,22 @@ def main() -> int:
                  "k_apply_sum": (128, torch.float32),
                  "segment_sum": torch.float32,
                  "conv3_bwd": (0, 128, 96, torch.bfloat16),
-                 "conv3_dw": (0, 128, 96, torch.bfloat16)}
+                 "conv3_dw": (0, 128, 96, torch.bfloat16),
+                 "csr_conv3": (0, 128, 96, torch.bfloat16),
+                 "brick_conv3": (96, torch.bfloat16)}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         m = res[name][main_case[name]]
+        per_path = {f"launches_{path}": n[name]
+                    for path, n in launches.items()}
+        if not sum(per_path.values()) > 0:
+            raise AssertionError(f"{name}: launched on no path")
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches_eval[name] + launches_train[name],
-            launches_eval=launches_eval[name],
-            launches_train=launches_train[name],
+            launches=sum(per_path.values()), **per_path,
             max_abs_err=max(r["max_abs_err"] for r in res[name].values()),
-            ms=m["ms"], plain_ms=m["plain_ms"]))
+            ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+            bound_by=m["bound_by"], library_ms=m["library_ms"]))
     log(f"total {time.perf_counter() - T_START:.1f}s on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

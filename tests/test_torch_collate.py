@@ -1,7 +1,9 @@
 """The PyTorch port's host collate against the JAX FreeMaskCollator: every
 table is bitwise equal, the instance targets included. Also: the port,
-its train step included, imports neither jax nor flax (checked in a
-subprocess, since this process imported jax through conftest)."""
+its train step included, imports neither jax nor flax nor any module of the
+JAX package (checked in a subprocess, since this process imported jax
+through conftest). With `csr_levels` set every table but the pair tables is
+still bitwise equal; tests/test_torch_csr.py holds the pair tables."""
 
 import os
 import subprocess
@@ -25,16 +27,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module", params=[
     dict(voxel_size=0.12, fine_buckets=False, scenes=2, points=1500),
     dict(voxel_size=0.06, fine_buckets=True, scenes=1, points=4000),
-], ids=["coarse-2scenes", "fine-1scene"])
+    dict(voxel_size=0.06, fine_buckets=False, scenes=2, points=1500,
+         csr_levels=(0, 1)),
+], ids=["coarse-2scenes", "fine-1scene", "csr01-2scenes"])
 def both(request):
     p = request.param
     scenes = make_batch(p["scenes"], num_points=p["points"])
-    ref, ref_meta = JaxCollator(voxel_size=p["voxel_size"],
-                                fine_buckets=p["fine_buckets"],
-                                fps_queries=8)(scenes)
-    got, meta = FreeMaskCollator(voxel_size=p["voxel_size"],
-                                 fine_buckets=p["fine_buckets"],
-                                 fps_queries=8)(scenes)
+    kw = dict(voxel_size=p["voxel_size"], fine_buckets=p["fine_buckets"],
+              fps_queries=8, csr_levels=p.get("csr_levels", ()))
+    ref, ref_meta = JaxCollator(**kw)(scenes)
+    got, meta = FreeMaskCollator(**kw)(scenes)
     return ref, ref_meta, got, meta
 
 
@@ -55,6 +57,10 @@ def test_graph_tables_bitwise(both):
             assert r.dtype == g.dtype, name
             np.testing.assert_array_equal(g, r, err_msg=name)
         assert lr.finer_num_padded == lg.finer_num_padded
+        # pair tables at the same levels; those levels padded to 256 rows
+        assert (lr.csr is None) == (lg.csr is None)
+        if lg.csr is not None:
+            assert lg.num_padded % 256 == 0
 
 
 def test_up_tables_match_jax(both):
@@ -157,6 +163,10 @@ def test_port_imports_no_jax():
         "scene = make_scene(800, seed=1)\n"
         "res = Predictor(m, 'cpu', voxel_size=0.15)(scene)\n"
         "assert res['masks'].shape[0] == len(scene['xyz'])\n"
+        "res = Predictor(m, 'cpu', voxel_size=0.15,"
+        " csr_levels=(0, 1))(scene)\n"
+        "assert res['masks'].shape[0] == len(scene['xyz'])\n"
+        "import unscene3d_torch.ops.brick_engine\n"
         "from unscene3d_torch.data.collate import FreeMaskCollator\n"
         "from unscene3d_torch.train.loop import build_trainer\n"
         "t = build_trainer(torch.float32, backbone='Res16UNet14A',"
@@ -166,7 +176,7 @@ def test_port_imports_no_jax():
         "loss = t.train_step(b, torch.Generator().manual_seed(0))['total']\n"
         "assert torch.isfinite(loss)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax',"
-        " 'jaxlib')]\n"
+        " 'jaxlib', 'unscene3d_tpu')]\n"
         "assert not bad, bad\n"
         "print('OK')\n")
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")

@@ -12,8 +12,11 @@ by one ulp where the two f32 sums straddle a rounding boundary. dW (kernel
 5) is f32 in both dtypes and sums tens of thousands of rows: 1e-4 for f32
 inputs (FMA), 5e-4 for bf16 (the tensor cores' f32 accumulation does not
 round to nearest). Each kernel also runs twice and must give bitwise-equal
-output.
+output. Kernels 6 (compacted valid pairs) and 7 (dense bricks) compute the
+same function as kernel 1 and are also held against it on the same inputs.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -21,10 +24,13 @@ import torch
 
 from unscene3d_torch.data.collate import FreeMaskCollator
 from unscene3d_torch.data.synthetic import make_scene
+from unscene3d_torch.ops import brick_engine as be
 from unscene3d_torch.ops import conv_ops
 from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_bwd_plain, conv3_dw,
                                        conv3_dw_plain, conv3_fwd,
                                        conv3_fwd_plain)
+from unscene3d_torch.ops.csr_conv import (build_csr_graph, csr_conv3_fwd,
+                                          csr_conv3_fwd_plain)
 from unscene3d_torch.ops.k_apply import k_apply, k_apply_plain
 from unscene3d_torch.ops.segment_pool import (segment_order, segment_sum,
                                               segment_sum_plain)
@@ -136,6 +142,85 @@ def test_conv3_bwd_matches_twin(cuda, levels, dtype, lv, cin, cout):
     _close(dx, dx_ref, dtype)
     _close(dw32, conv3_dw_plain(x, gm, lvl.nbr_idx), dtype,
            tol=1e-4 if dtype == torch.float32 else 5e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lv,cin,cout", [(0, 3, 32), (0, 128, 96),
+                                         (1, 96, 64), (2, 384, 256)])
+def test_csr_conv3_matches_twin_and_kernel_1(cuda, levels, dtype, lv, cin,
+                                             cout):
+    """Kernel 6 against its twin and against kernel 1 on the same inputs
+    (the same function), with noise in x's padding rows. The levels' row
+    counts are multiples of 128 but not all of 256."""
+    lvl = levels[lv].to(cuda)
+    csr = build_csr_graph(levels[lv].nbr_idx.numpy()).to(cuda)
+    n = lvl.num_padded
+    g = torch.Generator().manual_seed(cin)
+    x = torch.randn(n, cin, generator=g).to(cuda, dtype)
+    w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(cuda, dtype)
+    kw = dict(scale=torch.rand(cout, generator=g).add(0.5).to(cuda),
+              shift=torch.randn(cout, generator=g).to(cuda),
+              residual=torch.randn(n, cout, generator=g).to(cuda, dtype),
+              relu=True)
+    got = csr_conv3_fwd(x, w, csr, lvl.valid, **kw)
+    again = csr_conv3_fwd(x, w, csr, lvl.valid, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, csr_conv3_fwd_plain(x, w, csr, lvl.valid, **kw), dtype)
+    _close(got, conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(3, 32), (32, 32), (96, 96), (40, 72)])
+def test_brick_conv3_matches_twin_and_kernel_1(cuda, levels, dtype, cin,
+                                               cout):
+    """Kernel 7 against its twin, halo rows zero, and
+    disassemble(brick_conv3(assemble(x))) against kernel 1."""
+    lvl = levels[0]
+    bg = be.build_brick_graph(lvl.coords.numpy(), lvl.valid.numpy()).to(cuda)
+    lvl = lvl.to(cuda)
+    g = torch.Generator().manual_seed(cout)
+    x = (torch.randn(lvl.num_padded, cin, generator=g).to(cuda)
+         * lvl.valid[:, None]).to(dtype)
+    w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(cuda, dtype)
+    gb = be.assemble(x, bg)
+    kw = dict(scale=torch.rand(cout, generator=g).add(0.5).to(cuda),
+              offset=torch.randn(cout, generator=g).to(cuda),
+              residual=torch.randn(bg.nb_pad, be.CELLS, cout,
+                                   generator=g).to(cuda, dtype), relu=True)
+    got = be.brick_conv3(gb, w, bg, **kw)
+    again = be.brick_conv3(gb, w, bg, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert not got[:, :be.WIN_LO].any()
+    assert not got[:, be.WIN_LO + be.WIN_N:].any()
+    _close(got, be.brick_conv3_plain(gb, w, bg, kw["scale"], kw["offset"],
+                                     kw["residual"], True), dtype)
+    flat = be.disassemble(be.brick_conv3(gb, w, bg), bg, lvl)
+    _close(flat, conv3_fwd(x, w, lvl.nbr_idx, lvl.valid), dtype)
+
+
+def test_csr_autograd_function_on_the_card(cuda, levels):
+    """_CsrConv3 on the card (kernel 6 forward and dx, csr_dw) against the
+    same Function on the CPU (the twin), f32."""
+    g = torch.Generator().manual_seed(9)
+    base = levels[1]
+    csr = build_csr_graph(base.nbr_idx.numpy())
+    x = torch.randn(base.num_padded, 24, generator=g)
+    w = torch.randn(27, 24, 40, generator=g) * 0.2
+    res = {}
+    for dev in ("cpu", cuda):
+        lv = dataclasses.replace(base, csr=csr).to(dev)
+        xd = x.clone().to(dev).requires_grad_()
+        wd = w.clone().to(dev).requires_grad_()
+        before = csr_conv3_fwd.launches
+        out = conv_ops.sparse_conv3(xd, wd, lv)
+        (out * out.detach()).sum().backward()
+        if dev != "cpu":
+            assert csr_conv3_fwd.launches == before + 2   # forward and dx
+        res[str(dev)] = [t.detach().cpu() for t in (out, xd.grad, wd.grad)]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        _close(a, b, torch.float32, tol=1e-4)
 
 
 def test_autograd_functions_on_the_card(cuda, levels):

@@ -1,5 +1,6 @@
 """The whole Mask3D eval forward of the PyTorch port against the JAX model,
-and the port's inference entry point against the JAX post-processing.
+and the port's inference entry point and its own copy of the host
+post-processing against the JAX package's.
 
 Small sizes, as tests/test_scan_decoder.py: Res16UNet14A, hidden 32, 8
 queries, 2 heads, voxel 0.12, 2 scenes of 1,500 points. Inputs come from a
@@ -20,6 +21,7 @@ from unscene3d_tpu.eval.postprocess import eval_scene_predictions
 from unscene3d_tpu.models.backbone import Res16UNet14A
 from unscene3d_tpu.models.mask3d import Mask3D as JaxMask3D
 from unscene3d_torch.data.collate import FreeMaskCollator
+from unscene3d_torch.eval import postprocess as port_post
 from unscene3d_torch.inference import EVAL_DEFAULTS, Predictor, build_mask3d
 from unscene3d_torch.models.sparse_modules import SparseConv
 from unscene3d_torch.models.transformer_layers import Dense
@@ -99,6 +101,38 @@ def test_inference_instances_match_jax_postprocess(jax_f32):
     # masks threshold logits at 0: report flips rather than hide them
     flips = int((got["masks"] != ref["masks"]).sum())
     assert flips == 0, f"{flips} mask bits differ"
+
+
+@pytest.mark.parametrize("options", [
+    EVAL_DEFAULTS,
+    dict(EVAL_DEFAULTS, filter_instances=True, iou_threshold=0.6,
+         scores_threshold=0.1),
+    dict(EVAL_DEFAULTS, filter_instances=True, iou_threshold=0.6,
+         separate_instances=True),
+    dict(EVAL_DEFAULTS, eval_on_segments=False, topk_per_image=7),
+], ids=["defaults", "filter", "separate", "points-topk"])
+def test_postprocess_copy_equals_the_original(options):
+    """unscene3d_torch/eval/postprocess.py against
+    unscene3d_tpu/eval/postprocess.py on the same numpy-seeded inputs:
+    masks, classes and scores equal exactly."""
+    rng = np.random.RandomState(0)
+    n_pts, n_vox, n_seg, q = 3000, 900, 40, 12
+    logits = rng.randn(q, 3).astype(np.float32)
+    vox_masks = (rng.randn(n_vox, q) * 2).astype(np.float32)
+    inverse_map = rng.randint(0, n_vox, n_pts)
+    inverse_map[:n_vox] = np.arange(n_vox)
+    p2s = np.sort(rng.randint(0, n_seg, n_pts))
+    p2s[:n_seg] = np.arange(n_seg)
+    conn = rng.randint(0, n_seg, (60, 2))
+    kw = dict(inverse_map=inverse_map, point2segment_full=p2s,
+              segment_connectivity=conn, **options)
+    ref = eval_scene_predictions(logits, vox_masks, **kw)
+    got = port_post.eval_scene_predictions(logits, vox_masks, **kw)
+    assert set(got) == set(ref) == {"masks", "classes", "scores"}
+    assert ref["masks"].shape[1] > 0
+    for key in ref:
+        assert got[key].dtype == ref[key].dtype, key
+        np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
 
 
 def test_bf16_forward_mirrors_jax_dtypes(scenes, jax_f32):

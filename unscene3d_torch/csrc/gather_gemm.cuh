@@ -20,8 +20,10 @@
 // weight slice into shared memory, and multiplies: f32 on the CUDA cores
 // with a 4x4 register tile per thread, bf16 on the tensor cores through
 // WMMA fragments with f32 accumulation. Every output element is summed in a
-// fixed order: no atomics, bitwise deterministic. wgmma, cp.async/TMA
-// staging and valid-pair compaction are later work.
+// fixed order: no atomics, bitwise deterministic. wgmma and cp.async/TMA
+// staging are later work; valid-pair compaction is kernel 6 (csr_conv.cu).
+// The weight staging, the per-chunk products and the epilogue are device
+// functions that kernel 7 (brick_conv.cu) and kernel 6 share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,6 +55,63 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 constexpr int kThreads = 256;  // threads per block
 constexpr int kTK = 32;        // Cin chunk staged per step
+
+// The fused epilogue on one f32 accumulator, shared by kernels 1, 2, 4, 6
+// and 7: *scale + shift, + residual, ReLU, then the mask vm (0 or 1); `off`
+// is the element's offset in residual and out, `co` its output channel.
+template <typename T>
+__device__ __forceinline__ void epilogue_store(
+    float acc, float vm, size_t off, int co, const float* __restrict__ scale,
+    const float* __restrict__ shift, const T* __restrict__ residual,
+    T* __restrict__ out, int relu) {
+  float y = acc;
+  if (scale != nullptr) y = y * scale[co] + shift[co];
+  if (residual != nullptr) y += to_f32(residual[off]);
+  if (relu) y = fmaxf(y, 0.f);
+  out[off] = from_f32<T>(y * vm);
+}
+
+// Stage w[k, c0 : c0 + kTK, col0 : col0 + TN] into Bs as f32 (zero past the
+// edges).
+template <int TN, typename T>
+__device__ __forceinline__ void stage_weights_f32(float (*Bs)[TN],
+                                                  const T* __restrict__ w,
+                                                  int k, int c0, int col0,
+                                                  int cin, int cout) {
+  for (int e = threadIdx.x; e < kTK * TN; e += kThreads) {
+    const int kk = e / TN;
+    const int n = e % TN;
+    const int c = c0 + kk;
+    const int co = col0 + n;
+    Bs[kk][n] = (c < cin && co < cout)
+                    ? to_f32(w[((size_t)k * cin + c) * cout + co])
+                    : 0.f;
+  }
+}
+
+// One kTK chunk of the f32 product on the CUDA cores: acc (4 x 4 per
+// thread, rows ty + TY * r, columns tx + TX * c) += As^T @ Bs with
+// As[kk][row] and Bs[kk][col].
+template <int TM, int TN>
+__device__ __forceinline__ void fma_chunk(float (*As)[TM + 1],
+                                          float (*Bs)[TN],
+                                          float (&acc)[4][4], int tx,
+                                          int ty) {
+  constexpr int TX = TN / 4;
+  constexpr int TY = kThreads / TX;
+#pragma unroll 8
+  for (int kk = 0; kk < kTK; ++kk) {
+    float a[4], b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = As[kk][ty + TY * r];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) b[c] = Bs[kk][tx + TX * c];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+  }
+}
 
 // TN output channels per block; TM = 4096 / TN output rows, so every thread
 // owns a 4 x 4 register tile.
@@ -106,28 +165,9 @@ gather_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
         if (src != sentinel && c < cin) v = to_f32(x[(size_t)src * cin + c]);
         As[kk][r] = v;
       }
-      for (int e = tid; e < kTK * TN; e += kThreads) {
-        const int kk = e / TN;
-        const int n = e % TN;
-        const int c = c0 + kk;
-        const int co = col0 + n;
-        Bs[kk][n] = (c < cin && co < cout)
-                        ? to_f32(w[((size_t)k * cin + c) * cout + co])
-                        : 0.f;
-      }
+      stage_weights_f32<TN>(Bs, w, k, c0, col0, cin, cout);
       __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kTK; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = As[kk][ty + TY * r];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) b[c] = Bs[kk][tx + TX * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-      }
+      fma_chunk<TM, TN>(As, Bs, acc, tx, ty);
       __syncthreads();
     }
   }
@@ -141,11 +181,8 @@ gather_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int c = 0; c < 4; ++c) {
       const int co = col0 + tx + TX * c;
       if (co >= cout) continue;
-      float y = acc[r][c];
-      if (scale != nullptr) y = y * scale[co] + shift[co];
-      if (residual != nullptr) y += to_f32(residual[(size_t)i * cout + co]);
-      if (relu) y = fmaxf(y, 0.f);
-      out[(size_t)i * cout + co] = from_f32<T>(y * vm);
+      epilogue_store(acc[r][c], vm, (size_t)i * cout + co, co, scale, shift,
+                     residual, out, relu);
     }
   }
 }
@@ -159,6 +196,76 @@ constexpr int kTcM = 128, kTcN = 64, kTcK = 32;
 constexpr int kTcLdA = kTcK + 8;   // bf16 leading dims: multiples of 8 and
 constexpr int kTcLdB = kTcN + 8;   // 32-byte aligned fragment rows
 constexpr int kTcLdC = kTcN + 4;   // f32 leading dim: a multiple of 4
+// shared memory of a tensor-core block: the A and B staging, reused by the
+// f32 accumulator tile after the main loop
+constexpr int kTcABytes = kTcM * kTcLdA * 2;
+constexpr int kTcBBytes = kTcK * kTcLdB * 2;
+constexpr int kTcCBytes = kTcM * kTcLdC * 4;
+constexpr int kTcBytes = kTcABytes + kTcBBytes > kTcCBytes
+                             ? kTcABytes + kTcBBytes : kTcCBytes;
+
+// Stage w[k, c0 : c0 + kTcK, col0 : col0 + kTcN] into Bs (bf16, leading
+// dimension kTcLdB, zero past the edges).
+template <typename T>
+__device__ __forceinline__ void stage_weights_tc(T* Bs,
+                                                 const T* __restrict__ w,
+                                                 int k, int c0, int col0,
+                                                 int cin, int cout) {
+  const T zero = __float2bfloat16(0.f);
+  for (int e = threadIdx.x; e < kTcK * kTcN; e += kThreads) {
+    const int kk = e / kTcN;
+    const int n = e % kTcN;
+    const int c = c0 + kk;
+    const int co = col0 + n;
+    Bs[kk * kTcLdB + n] = (c < cin && co < cout)
+                              ? w[((size_t)k * cin + c) * cout + co]
+                              : zero;
+  }
+}
+
+using AccFragment =
+    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
+
+// One kTcK chunk on the tensor cores: the warp's 32 x 32 sub-tile at (wr,
+// wc) of the 128 x 64 block tile, acc (2 x 2 fragments) += As @ Bs.
+template <typename T>
+__device__ __forceinline__ void wmma_chunk(const T* As, const T* Bs,
+                                           AccFragment (&acc)[2][2], int wr,
+                                           int wc) {
+  using namespace nvcuda;
+#pragma unroll
+  for (int ks = 0; ks < kTcK; ks += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      wmma::load_matrix_sync(a[i], As + (wr + 16 * i) * kTcLdA + ks, kTcLdA);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::load_matrix_sync(b[j], Bs + ks * kTcLdB + wc + 16 * j, kTcLdB);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+  }
+}
+
+// Spill the warps' accumulator fragments into the block's f32 tile Cs
+// (leading dimension kTcLdC), which may reuse the A/B staging: call after
+// the main loop's last barrier; ends on a barrier.
+__device__ __forceinline__ void store_acc_tile(float* Cs,
+                                               AccFragment (&acc)[2][2],
+                                               int wr, int wc) {
+  using namespace nvcuda;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wr + 16 * i) * kTcLdC + wc + 16 * j,
+                              acc[i][j], kTcLdC, wmma::mem_row_major);
+  __syncthreads();
+}
 
 template <typename T>   // T = __nv_bfloat16 (a template: one copy per .so)
 __global__ void __launch_bounds__(kThreads)
@@ -172,16 +279,10 @@ gather_gemm_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
                       int relu) {
   static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 only");
   using namespace nvcuda;
-  constexpr int kABytes = kTcM * kTcLdA * 2;
-  constexpr int kBBytes = kTcK * kTcLdB * 2;
-  constexpr int kCBytes = kTcM * kTcLdC * 4;
-  constexpr int kBytes = kABytes + kBBytes > kCBytes ? kABytes + kBBytes
-                                                     : kCBytes;
-  // the f32 accumulator tile reuses the A/B staging after the main loop
-  __shared__ __align__(128) unsigned char smem[kBytes];
+  __shared__ __align__(128) unsigned char smem[kTcBytes];
   __shared__ int rows[kTcM];
   T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + kABytes);
+  T* Bs = reinterpret_cast<T*>(smem + kTcABytes);
   float* Cs = reinterpret_cast<float*>(smem);
 
   const int tid = threadIdx.x;
@@ -192,7 +293,7 @@ gather_gemm_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int col0 = blockIdx.y * kTcN;
   const T zero = __float2bfloat16(0.f);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  AccFragment acc[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -216,56 +317,23 @@ gather_gemm_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
         As[r * kTcLdA + kk] = (src != sentinel && c < cin)
                                   ? x[(size_t)src * cin + c] : zero;
       }
-      for (int e = tid; e < kTcK * kTcN; e += kThreads) {
-        const int kk = e / kTcN;
-        const int n = e % kTcN;
-        const int c = c0 + kk;
-        const int co = col0 + n;
-        Bs[kk * kTcLdB + n] = (c < cin && co < cout)
-                                  ? w[((size_t)k * cin + c) * cout + co]
-                                  : zero;
-      }
+      stage_weights_tc(Bs, w, k, c0, col0, cin, cout);
       __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < kTcK; ks += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], As + (wr + 16 * i) * kTcLdA + ks,
-                                 kTcLdA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], Bs + ks * kTcLdB + wc + 16 * j,
-                                 kTcLdB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
+      wmma_chunk(As, Bs, acc, wr, wc);
       __syncthreads();
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr + 16 * i) * kTcLdC + wc + 16 * j,
-                              acc[i][j], kTcLdC, wmma::mem_row_major);
-  __syncthreads();
+  store_acc_tile(Cs, acc, wr, wc);
   for (int e = tid; e < kTcM * kTcN; e += kThreads) {
     const int r = e / kTcN;
     const int n = e % kTcN;
     const int i = row0 + r;
     const int co = col0 + n;
     if (i >= n_out || co >= cout) continue;
-    float y = Cs[r * kTcLdC + n];
-    if (scale != nullptr) y = y * scale[co] + shift[co];
-    if (residual != nullptr) y += to_f32(residual[(size_t)i * cout + co]);
-    if (relu) y = fmaxf(y, 0.f);
-    out[(size_t)i * cout + co] = from_f32<T>(y * (valid[i] ? 1.f : 0.f));
+    epilogue_store(Cs[r * kTcLdC + n], valid[i] ? 1.f : 0.f,
+                   (size_t)i * cout + co, co, scale, shift, residual, out,
+                   relu);
   }
 }
 

@@ -8,7 +8,10 @@ segments and seg_valid, per-level scene tables, level_bounds, seg_counts,
 the host FPS seeds and, for scenes that carry instance `masks`, the targets.
 Two additions, static per batch: the stable segment row order and offsets
 that kernel 3 (ops/segment_pool.py) walks, and each level's one-hot parent
-tables `up_idx` that the up2 conv gathers through.
+tables `up_idx` that the up2 conv gathers through. With `csr_levels` (the
+JAX collator's `data.csr_levels`) those levels are padded to 256 rows and
+carry the valid-pair tables of kernel 6, ragged and exact where the JAX
+collator buckets them for static shapes.
 """
 
 from __future__ import annotations
@@ -125,12 +128,15 @@ class FreeMaskCollator:
 
     def __init__(self, voxel_size: float = 0.02, num_levels: int = 5,
                  seg_align: int = 64,
-                 fine_buckets: bool = False, fps_queries: int = 100):
+                 fine_buckets: bool = False, fps_queries: int = 100,
+                 csr_levels: tuple = ()):
         self.voxel_size = voxel_size
         self.num_levels = num_levels
         self.seg_align = seg_align
         self.fine_buckets = fine_buckets
         self.fps_queries = int(fps_queries)
+        # levels whose k3 convs run over compacted valid pairs (kernel 6)
+        self.csr_levels = tuple(csr_levels)
 
     def __call__(self, scenes: list[dict]) -> tuple[SceneBatch, CollateMeta]:
         B = len(scenes)
@@ -163,7 +169,8 @@ class FreeMaskCollator:
                               p["coords"]])
              for b, p in enumerate(per_scene)])
         levels = build_sparse_graph(coords_all, self.num_levels,
-                                    fine_buckets=self.fine_buckets)
+                                    fine_buckets=self.fine_buckets,
+                                    csr_levels=self.csr_levels)
         n0_pad = len(levels[0]["valid"])
 
         c_in = per_scene[0]["feats"].shape[1]
@@ -226,7 +233,7 @@ class FreeMaskCollator:
                        parent_offset=t(lv["parent_offset"]),
                        finer_num_padded=lv["finer_num_padded"],
                        up_idx=None if lv["up_idx"] is None
-                       else t(lv["up_idx"]))
+                       else t(lv["up_idx"]), csr=lv["csr"])
             for lv in levels))
         batch = SceneBatch(
             graph=graph, features=t(features), raw_coords=t(raw_coords),

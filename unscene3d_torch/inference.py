@@ -3,22 +3,25 @@ unscene3d_tpu/train/experiment.py:Experiment.evaluate's per-scene path with
 host post-processing).
 
 Each request: scene dict -> host collate -> host-to-device copy -> Mask3D eval
-forward -> `unscene3d_tpu.eval.postprocess.eval_scene_predictions` with the
-defaults of conf/config_base_instance_segmentation.yaml ->
+forward -> `eval/postprocess.py:eval_scene_predictions` (the port's own numpy
+and scipy copy) with the defaults of
+conf/config_base_instance_segmentation.yaml ->
 {masks (P, K) bool, classes (K,), scores (K,)} over the scene's points.
-The post-processing is the JAX package's own host code: numpy and scipy,
-shared as it is, since that module imports neither jax nor flax.
 
     predictor = Predictor(build_mask3d(torch.bfloat16), "cuda")
     result = predictor(scene)
+
+`csr_levels` is the collator's `data.csr_levels` (conf/data/indoor.yaml): at
+those levels the batch carries valid-pair tables and every k3 conv runs
+through kernel 6 (ops/csr_conv.py) instead of kernel 1.
 """
 
 from __future__ import annotations
 
 import torch
 
-from unscene3d_tpu.eval.postprocess import eval_scene_predictions
 from unscene3d_torch.data.collate import FreeMaskCollator
+from unscene3d_torch.eval.postprocess import eval_scene_predictions
 from unscene3d_torch.models import backbone as backbones
 from unscene3d_torch.models.mask3d import Mask3D
 from unscene3d_torch.models.weights import init_random_
@@ -63,12 +66,13 @@ class Predictor:
     raises without one; 'cpu' runs the kernels' plain twins)."""
 
     def __init__(self, model: Mask3D, device="cuda", voxel_size: float = 0.02,
-                 fine_buckets: bool = True):
+                 fine_buckets: bool = True, csr_levels: tuple = ()):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.collator = FreeMaskCollator(voxel_size=voxel_size,
                                          fine_buckets=fine_buckets,
-                                         fps_queries=model.num_queries)
+                                         fps_queries=model.num_queries,
+                                         csr_levels=csr_levels)
 
     def forward(self, scene: dict):
         """(raw model outputs on the device, collate meta)."""

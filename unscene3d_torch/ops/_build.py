@@ -45,6 +45,12 @@ _SIGNATURES = {
     # x, gm, nbr, partials, dw, n, cin, cout, splits, rows_per_split,
     # is_bf16, stream
     "conv3_dw": [_P] * 5 + [_I] * 6 + [_P],
+    # x, w, pair_in, pair_out, tile_start, valid, scale, shift, residual, out,
+    # n, cin, cout, relu, is_bf16, stream
+    "csr_conv3_fwd": [_P] * 10 + [_I] * 5 + [_P],
+    # g, w, asm_idx, scale, shift, residual, out, nb, sentinel, cin, cout,
+    # relu, is_bf16, stream
+    "brick_conv3": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -2,14 +2,18 @@
 unscene3d_tpu/ops/conv_ops.py).
 
 Features are flat (N_pad, C) arrays. k3 convs go through kernel 1
-(ops/conv3.py); the k2 down/up convs and the average pool through kernel 2
-(ops/k_apply.py); the k1 conv is a plain matmul, as the JAX package leaves
-it to XLA.
+(ops/conv3.py), or through kernel 6 (ops/csr_conv.py) at a level that
+carries pair tables (`level.csr`, the collator's `csr_levels`); the k2
+down/up convs and the average pool through kernel 2 (ops/k_apply.py); the
+k1 conv is a plain matmul, as the JAX package leaves it to XLA.
 
 Gradients mirror the JAX package's custom VJPs, as torch.autograd.Functions
 that are used only when an input requires grad (training):
   * k3: dx = the conv of gm with flip-transposed weights and dW = 27 gathered
     GEMMs, kernels 4 and 5 (ops/conv3.py:conv3_bwd / conv3_dw);
+  * k3 at a CSR level: dx = kernel 6 over gm with flip-transposed weights
+    and the same pair tables, dW = `csr_dw`, per-offset matmuls over the
+    exact pair ranges in plain torch (plain XLA in the JAX package);
   * down2: dx = an up2 conv with W^T (kernel 2 over the fine level's
     `up_idx`), dW = one parent gather + 8 masked GEMMs in plain torch;
   * up2: dx = a down2 conv with W^T (kernel 2 over the coarse level's
@@ -23,7 +27,9 @@ from __future__ import annotations
 
 import torch
 
-from unscene3d_torch.ops.conv3 import conv3_bwd, conv3_dw, conv3_fwd, fold_bias
+from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_dw, conv3_fwd,
+                                       flip_transpose, fold_bias)
+from unscene3d_torch.ops.csr_conv import csr_conv3_fwd, csr_dw
 from unscene3d_torch.ops.k_apply import k_apply
 from unscene3d_torch.ops.sparse_graph import LevelGraph
 
@@ -60,12 +66,34 @@ class _Conv3(torch.autograd.Function):
         return dx, dw, None
 
 
+class _CsrConv3(torch.autograd.Function):
+    """k3 conv without epilogue at a level with pair tables: forward and dx
+    kernel 6, dW plain torch (csr_conv.py:_csr_bwd)."""
+
+    @staticmethod
+    def forward(ctx, x, w, level):
+        ctx.save_for_backward(x, w)
+        ctx.level = level
+        return csr_conv3_fwd(x, w, level.csr, level.valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        lv = ctx.level
+        gm = _masked(g, lv.valid, x.dtype)
+        dx = None
+        if ctx.needs_input_grad[0]:   # not the stem's input features
+            dx = csr_conv3_fwd(gm, flip_transpose(w), lv.csr, lv.valid)
+        return dx, csr_dw(x, gm, lv.csr).to(w.dtype), None
+
+
 def sparse_conv3(x, w, level: LevelGraph, bias=None, scale=None, shift=None,
                  residual=None, relu=False):
     """kernel_size=3, stride=1 conv with the optional fused eval epilogue.
     x: (N, Cin), w: (27, Cin, Cout) in x.dtype. Returns (N, Cout) in
-    x.dtype. The epilogue is forward only: with it, no input may need a
-    gradient (run an eval model under torch.no_grad())."""
+    x.dtype. `level.csr` alone decides between kernel 1 and kernel 6. The
+    epilogue is forward only: with it, no input may need a gradient (run an
+    eval model under torch.no_grad())."""
     fused = (scale is not None or shift is not None or residual is not None
              or relu)
     if _needs_grad(x, w, bias, scale, shift, residual):
@@ -73,9 +101,13 @@ def sparse_conv3(x, w, level: LevelGraph, bias=None, scale=None, shift=None,
             raise NotImplementedError(
                 "sparse_conv3: the fused epilogue has no backward; call it "
                 "under torch.no_grad() or without scale/shift/residual/relu")
-        return _masked_bias(_Conv3.apply(x, w, level), bias, level.valid)
-    # one launch of kernel 1 with the fused epilogue, forward only
+        fn = _Conv3 if level.csr is None else _CsrConv3
+        return _masked_bias(fn.apply(x, w, level), bias, level.valid)
+    # one launch of kernel 1 or 6 with the fused epilogue, forward only
     scale, shift = fold_bias(bias, scale, shift, w.shape[-1], x.device)
+    if level.csr is not None:
+        return csr_conv3_fwd(x, w, level.csr, level.valid, scale=scale,
+                             shift=shift, residual=residual, relu=relu)
     return conv3_fwd(x, w, level.nbr_idx, level.valid,
                      scale=scale, shift=shift, residual=residual, relu=relu)
 

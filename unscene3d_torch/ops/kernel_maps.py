@@ -2,7 +2,9 @@
 the k3 neighbour maps, the k2 child/parent maps and level padding, in numpy.
 The tables equal the JAX package's bitwise (tests/test_torch_collate.py).
 One addition: each level's one-hot parent tables for the transposed conv,
-built here once per batch instead of on the device at every up2.
+built here once per batch instead of on the device at every up2. Levels
+named in `csr_levels` are padded to a multiple of 256 rows, as the JAX
+collator pads them, and carry the pair tables of kernel 6.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ import itertools
 
 import numpy as np
 
+from unscene3d_torch.ops.csr_conv import build_csr_graph
 from unscene3d_torch.ops.hashing import CoordHashTable, ravel_hash
 from unscene3d_torch.ops.sparse_graph import bucket_size
 
@@ -63,11 +66,14 @@ def _downsample(coords: np.ndarray):
 
 
 def build_sparse_graph(coords: np.ndarray, num_levels: int = 5,
-                       fine_buckets: bool = False) -> list[dict]:
+                       fine_buckets: bool = False,
+                       csr_levels: tuple = ()) -> list[dict]:
     """All levels of one batch as dicts of numpy arrays (the collate wraps
     them into LevelGraph tensors). coords: (N, 4) [b, x, y, z] voxel coords
-    at stride 1, unpadded. Pads are `bucket_size(n + 1)` per level, as in
-    the JAX collator without window levels."""
+    at stride 1, unpadded. Pads are `bucket_size(n + 1)` per level, aligned
+    to 256 rows at the levels in `csr_levels` and to 128 elsewhere, as in
+    the JAX collator without window levels; the levels in `csr_levels` get
+    the valid-pair tables `csr`."""
     level_coords = [np.asarray(coords, dtype=np.int64)]
     parent_idxs, parent_offs = [], []
     for _ in range(num_levels - 1):
@@ -75,7 +81,9 @@ def build_sparse_graph(coords: np.ndarray, num_levels: int = 5,
         level_coords.append(coarse)
         parent_idxs.append(p_idx)
         parent_offs.append(p_off)
-    pads = [bucket_size(len(lc) + 1, fine=fine_buckets) for lc in level_coords]
+    pads = [bucket_size(len(lc) + 1, fine=fine_buckets,
+                        align=256 if li in csr_levels else 128)
+            for li, lc in enumerate(level_coords)]
 
     levels = []
     for li in range(num_levels):
@@ -103,9 +111,10 @@ def build_sparse_graph(coords: np.ndarray, num_levels: int = 5,
             parent_off[:n] = parent_offs[li]
             up = up_tables_from_parents(parent_idx, parent_off, valid,
                                         pads[li + 1])
+        nbr_idx = build_neighbor_map_padded(lc, n_pad)
         levels.append(dict(
-            coords=coords_p, valid=valid,
-            nbr_idx=build_neighbor_map_padded(lc, n_pad),
+            coords=coords_p, valid=valid, nbr_idx=nbr_idx,
             child_idx=child, parent_idx=parent_idx, parent_offset=parent_off,
-            up_idx=up, finer_num_padded=pads[li - 1] if li > 0 else 1))
+            up_idx=up, finer_num_padded=pads[li - 1] if li > 0 else 1,
+            csr=build_csr_graph(nbr_idx) if li in csr_levels else None))
     return levels

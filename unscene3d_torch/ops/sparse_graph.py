@@ -3,9 +3,12 @@ tensors (counterpart of unscene3d_tpu/ops/sparse_graph.py).
 
 The host builds the whole multi-level topology once per batch (ops/
 kernel_maps.py) and pads every level to a bucketed size; the kernels then
-read the maps directly. Levels: 0 = stride 1 ... 4 = stride 16. The window,
-CSR and brick tables of the JAX package exist only for the TPU compiler and
-have no counterpart here.
+read the maps directly. Levels: 0 = stride 1 ... 4 = stride 16. A level
+named in the collator's `csr_levels` also carries the valid-pair tables of
+kernel 6 (ops/csr_conv.py:CsrGraph); the brick tables of kernel 7 are built
+apart from the batch (ops/brick_engine.py:build_brick_graph). The window
+tables of the JAX package exist only for the TPU compiler and have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from unscene3d_torch.ops.csr_conv import CsrGraph
 
 
 @dataclasses.dataclass
@@ -32,6 +37,9 @@ class LevelGraph:
     # (8, N) int32 rows of the coarser level, one-hot by parent_offset: the
     # up2 conv's gather tables (None at the coarsest level)
     up_idx: torch.Tensor | None = None
+    # valid-pair tables of the level's k3 topology: with them every k3 conv
+    # of the level runs through kernel 6 instead of kernel 1
+    csr: CsrGraph | None = None
 
     @property
     def num_padded(self) -> int:
@@ -45,7 +53,7 @@ class LevelGraph:
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
             for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+            if isinstance(getattr(self, f.name), (torch.Tensor, CsrGraph))})
 
 
 @dataclasses.dataclass
