@@ -4,7 +4,11 @@ against its plain twin at main-path shapes, drives the eval path through
 `unscene3d_torch.train.loop` on bench.py's batch-8 train batch, both in the
 default configuration (kernels 1-5) and with `csr_levels=(0, 1, 2)` (kernel
 6 at those levels), the brick conv engine (kernel 7) on the bench scene's
-level 0, and checks card-vs-CPU parity on a mid-size scene.
+level 0, the two prototype entry points `unscene3d_torch.bench.proto_*`
+(kernels 8 and 9) at that level, and the pseudo-mask half: the batched NCut
+row (64 scenes x 400 segments x 96 features) and the bench scene through
+`unscene3d_torch.pseudo.pipeline`; it checks card-vs-CPU parity on a
+mid-size scene and on 8 NCut scenes.
 
     python3 chip_smoke.py
 
@@ -75,12 +79,17 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                   "unscene3d_tpu/ops/csr_conv.py:150"),
     "brick_conv3": ("unscene3d_torch/csrc/brick_conv.cu",
                     "unscene3d_tpu/ops/brick_engine.py:176"),
+    "brick_conv_proto": ("unscene3d_torch/csrc/proto_brick.cu",
+                         "benchmarks/proto_brick_pallas.py:150"),
+    "win_decompose": ("unscene3d_torch/csrc/win_decompose.cu",
+                      "benchmarks/proto_win_decompose.py:30"),
 }
 # launches per eval forward of Mask3D(Res16UNet34C): 1 stem + 23 blocks x 2
 # k3 convs; 4 down2 + 4 up2; 4 coordinate + 4 mask-feature pools; 1 pool
 PER_FORWARD = {"conv3_fwd": 47, "k_apply_gemm": 8, "k_apply_sum": 8,
                "segment_sum": 1, "conv3_bwd": 0, "conv3_dw": 0,
-               "csr_conv3": 0, "brick_conv3": 0}
+               "csr_conv3": 0, "brick_conv3": 0, "brick_conv_proto": 0,
+               "win_decompose": 0}
 # with csr_levels=(0, 1, 2): the stem and the 22 block convs of levels 0-2
 # go through kernel 6, the 24 of levels 3 and 4 through kernel 1
 PER_FORWARD_CSR = dict(PER_FORWARD, conv3_fwd=24, csr_conv3=23)
@@ -90,12 +99,23 @@ PER_FORWARD_CSR = dict(PER_FORWARD, conv3_fwd=24, csr_conv3=23)
 # pools and 1 segment sum (the pooled readout is under a stopped gradient)
 PER_TRAIN_STEP = {"conv3_fwd": 93, "conv3_bwd": 46, "conv3_dw": 47,
                   "k_apply_gemm": 16, "k_apply_sum": 8, "segment_sum": 1,
-                  "csr_conv3": 0, "brick_conv3": 0}
+                  "csr_conv3": 0, "brick_conv3": 0, "brick_conv_proto": 0,
+                  "win_decompose": 0}
 # with csr_levels=(0, 1, 2): kernel 6 runs 23 forward + 22 recomputed + 22
 # dx (none for the stem); kernel 1 24 + 24 recomputed, kernels 4 and 5 at the
 # 24 convs of levels 3 and 4; the 23 CSR dW are csr_dw in plain torch
 PER_TRAIN_STEP_CSR = dict(PER_TRAIN_STEP, conv3_fwd=48, conv3_bwd=24,
                           conv3_dw=24, csr_conv3=67)
+# the CSC feature extractor (the backbone alone, multires mode): the 47 k3
+# convs and the 8 k2 convs; no pools, no segment sum
+PER_CSC_FORWARD = dict(PER_FORWARD, k_apply_sum=0, segment_sum=0)
+# the pseudo row of bench.py: scenes x segments x features
+PSEUDO_ROW = dict(batch_scenes=64, num_segments=400)
+EIGH_SCENES = 16         # scenes of the row timed with the exact solver
+NCUT_PARITY_SCENES = 8   # card-vs-CPU NCut scenes (f32)
+# planted-object recovery of cholinv against eigh, the reference's own
+# acceptance criterion (tests/test_ncut_solver_agreement.py): within 0.10
+RECOVERY_TOL = 0.10
 
 
 def log(msg: str) -> None:
@@ -104,19 +124,9 @@ def log(msg: str) -> None:
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     """Median milliseconds of fn on the current stream (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from unscene3d_torch.bench.timing import device_ms
+
+    return device_ms(fn, "cuda", reps, warmup)
 
 
 def counters():
@@ -124,12 +134,16 @@ def counters():
     from unscene3d_torch.ops.conv3 import conv3_bwd, conv3_dw, conv3_fwd
     from unscene3d_torch.ops.csr_conv import csr_conv3_fwd
     from unscene3d_torch.ops.k_apply import k_apply_gemm, k_apply_sum
+    from unscene3d_torch.ops.proto_brick import proto_brick_conv
     from unscene3d_torch.ops.segment_pool import segment_sum
+    from unscene3d_torch.ops.win_decompose import win_conv_variant
 
     return {"conv3_fwd": conv3_fwd, "k_apply_gemm": k_apply_gemm,
             "k_apply_sum": k_apply_sum, "segment_sum": segment_sum,
             "conv3_bwd": conv3_bwd, "conv3_dw": conv3_dw,
-            "csr_conv3": csr_conv3_fwd, "brick_conv3": brick_conv3}
+            "csr_conv3": csr_conv3_fwd, "brick_conv3": brick_conv3,
+            "brick_conv_proto": proto_brick_conv,
+            "win_decompose": win_conv_variant}
 
 
 def reset_counters():
@@ -184,7 +198,7 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
     """Run kernel twice (bitwise equal), compare with the twin, time both.
     work = (bytes moved, FLOPs done, dtype of the products) gives the bound:
     the larger of bytes over the card's memory rate and FLOPs over its peak
-    rate for that type. library: one PyTorch call computing the same
+    rate for that type (FLOPs may be a dict by dtype, whose times add). library: one PyTorch call computing the same
     function, timed only. other = (name, fn): another kernel of the port
     that computes the same function, held to the same tolerance and
     timed."""
@@ -204,7 +218,11 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
     if work is not None:
         moved, flops, kind = work
         by_bytes = 1e3 * moved / PEAK_BYTES
-        by_ops = 1e3 * flops / PEAK_FLOPS[kind]
+        if isinstance(flops, dict):     # operations of more than one type
+            by_ops = sum(1e3 * f / PEAK_FLOPS[k] for k, f in flops.items())
+            flops = sum(flops.values())
+        else:
+            by_ops = 1e3 * flops / PEAK_FLOPS[kind]
         out["bound_ms"] = max(by_bytes, by_ops)
         out["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
         extra += (f" bound_ms={out['bound_ms']:.4f} ({out['bound_by']}: "
@@ -941,6 +959,337 @@ def phase_train_csr(dev, batch):
     return launches
 
 
+def phase_proto(dev):
+    """The two prototype entry points at full size (the bench scene's level
+    0), their launch counts read around exactly those two calls; then each
+    variant of kernel 9 and kernel 8 against its twin with its bound, `full`
+    plus the spilled pairs' products against kernel 1, kernel 8 against
+    kernel 7 without an epilogue on the occupied cells, and cuDNN's conv3d
+    on the same bricks as kernel 8's library call."""
+    from unscene3d_torch.bench import proto_brick, proto_win_decompose
+    from unscene3d_torch.ops import brick_engine as be
+    from unscene3d_torch.ops.conv3 import conv3_fwd
+    from unscene3d_torch.ops.proto_brick import (proto_brick_conv,
+                                                 proto_brick_conv_plain)
+    from unscene3d_torch.ops.win_decompose import (VARIANTS, spill_products,
+                                                   win_conv_variant,
+                                                   win_conv_variant_plain)
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    wcase = proto_win_decompose.build_case(dev)
+    bcase = proto_brick.build_case(dev, log=log)
+    log(f"prototype cases built in {time.perf_counter() - t0:.1f}s")
+    cnt = reset_counters()
+    split = proto_win_decompose.run(dev, case=wcase, harness=True, log=log)
+    brick = proto_brick.run(dev, case=bcase, log=log)
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    log(f"prototype paths: launches {launches}")
+    want = {"win_decompose": len(VARIANTS) * 12, "brick_conv_proto": 9,
+            "conv3_fwd": 12 + 9}
+    for k, n in launches.items():
+        if n != want.get(k, 0):
+            raise AssertionError(f"prototype paths: {k} launched {n} times, "
+                                 f"expected {want.get(k, 0)}")
+    ms = split["ms"]
+    log(f"kernel 9 split at L0 ({split['rows']} rows, 128->128 bf16, "
+        f"{split['spilled_pairs']} spilled pairs): full {ms['full']:.3f}ms = "
+        f"centre {ms['dma_only']:.3f} + rows and products; without the "
+        f"products (no_gemm) {ms['no_gemm']:.3f}, with contiguous rows "
+        f"(no_select) {ms['no_select']:.3f}, with one table column "
+        f"(no_onehot) {ms['no_onehot']:.3f}; kernel 1 {ms['conv3_fwd']:.3f}")
+
+    res = {"win_decompose": {}, "brick_conv_proto": {}}
+    x, w, tb, wg = wcase.x, wcase.w, wcase.tables, wcase.graph
+    n_pad, cin = x.shape
+    cout = w.shape[-1]
+    in_window = (tb.lidx >= 0) & (tb.lidx < tb.w_sub)
+    hit, hit0 = int(in_window.sum().item()), int(in_window[:, 0].sum().item())
+    out_b = n_pad * cout * 2
+    centre = 2 * n_pad * cin * cout
+    work = {   # bytes each variant's definition reads and writes; its FLOPs
+        "full": (nbytes(x, w, tb.r0, tb.starts, tb.lidx) + out_b,
+                 centre + 2 * hit * cin * cout),
+        "no_onehot": (nbytes(x, w, tb.r0, tb.starts) + 2 * n_pad + out_b,
+                      centre + 2 * 26 * hit0 * cin * cout),
+        "no_select": (nbytes(x, w, tb.r0, tb.starts) + out_b, 27 * centre),
+        "no_gemm": (nbytes(x, tb.r0, tb.starts, tb.lidx) + cin * cout * 2
+                    + out_b, {bf16: centre, torch.float32: hit * cout}),
+        "dma_only": (nbytes(x) + cin * cout * 2 + out_b, centre),
+    }
+    for v in VARIANTS:
+        res["win_decompose"][v] = _compare(
+            f"win_decompose {v} L0 {cin}->{cout}", bf16,
+            lambda: win_conv_variant(x, w, tb, v),
+            lambda: win_conv_variant_plain(x, w, tb, v),
+            work=(*work[v], bf16))
+    full = win_conv_variant(x, w, tb, "full").float()
+    k1 = conv3_fwd(x, w, wcase.nbr_idx, wcase.valid).float()
+    total = full + spill_products(x, w, wg)
+    scale = k1.abs().max().item()
+    err = (total - k1)[wcase.valid].abs().max().item()
+    gap = (full - k1)[wcase.valid].abs().max().item()
+    log(f"  full + the {wg.num_spills} spilled pairs' products vs conv3_fwd "
+        f"(valid rows): max_rel_err={err / scale:.3e} (tol "
+        f"{KERNEL_TOL[bf16]:g}); without them {gap / scale:.3e}")
+    if not err <= KERNEL_TOL[bf16] * scale:
+        raise AssertionError(f"full + spills vs kernel 1: {err} > "
+                             f"{KERNEL_TOL[bf16]} * {scale}")
+    del wcase, x, w, tb, full, k1, total, in_window
+    torch.cuda.empty_cache()
+
+    g, w = bcase.g, bcase.w
+    nb, _, c = g.shape
+    n = bcase.xpad.shape[0] - 1
+    bg = be.BrickGraph(asm_idx=bcase.asm,
+                       out_idx=torch.zeros(0, dtype=torch.int32, device=dev),
+                       nbr=torch.zeros(0, dtype=torch.int32, device=dev),
+                       n_pad=n + 1)
+    occ = bg.occ
+    pairs = sum(int(occ[:, be.WIN_LO + d:be.WIN_LO + d + be.WIN_N].sum()
+                    .item()) for d in be.K3_DELTAS)
+    dense = g[:, :1000].view(nb, 10, 10, 10, c).permute(0, 4, 1, 2, 3)
+    w5 = w.view(3, 3, 3, c, c).permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+    res["brick_conv_proto"][(c, bf16)] = _compare(
+        f"brick_conv_proto L0 {c}->{c}, {nb} bricks", bf16,
+        lambda: proto_brick_conv(g, w),
+        lambda: proto_brick_conv_plain(g, w),
+        work=(2 * nbytes(g) + nbytes(w), 2 * pairs * c * c, bf16),
+        library=lambda: torch.nn.functional.conv3d(dense, w5))
+    k8 = proto_brick_conv(g, w)
+    k7 = be.brick_conv3(g, w, bg)
+    masked = k8 * occ[..., None].to(k8.dtype)
+    err = (masked.float() - k7.float()).abs().max().item()
+    scale = k7.float().abs().max().item()
+    empty = (k8.float().abs().amax(-1) > 0)[~occ].float().mean().item()
+    log(f"  brick_conv_proto vs brick_conv3 (no epilogue) on the occupied "
+        f"cells: max_rel_err={err / scale:.3e}, bitwise equal "
+        f"{torch.equal(masked, k7)}; {empty:.1%} of the empty cells hold a "
+        f"nonzero sum (no occupancy mask); vs conv3_fwd at the real voxels "
+        f"max_rel_err={brick['max_rel_err']:.3e}")
+    if not err <= KERNEL_TOL[bf16] * scale:
+        raise AssertionError(f"kernel 8 vs kernel 7: {err}")
+    del bcase, g, w, k8, k7, masked, dense, occ, bg
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def _segment_scenes(n):
+    from unscene3d_torch.data.synthetic import make_segment_scene
+
+    return [make_segment_scene(seed=i, num_segments=400) for i in range(n)]
+
+
+def _same_masks(a, b):
+    return [x.shape == y.shape and bool((x == y).all()) for x, y in zip(a, b)]
+
+
+def phase_pseudo_row(dev):
+    """bench.py's pseudo row through BatchedNCut on the card: cholinv (one
+    warm run, median of 3), eigh on fewer scenes, the host loop once;
+    finite eigenvectors, at least one mask per scene, two runs bitwise
+    equal, scene 0 alone against scene 0 in the batch, the idle share of one
+    traced run. The row's features are normal random numbers, whose
+    tau-graph is the identity, so its masks say nothing of the solvers: the
+    solver agreement (matched IoU, planted-object recovery) is read on
+    `make_segment_scene` scenes."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity
+    from unscene3d_torch.bench.pseudo import (bench_pseudo,
+                                              make_pseudo_scenes, matched_iou,
+                                              object_recovery)
+    from unscene3d_torch.pseudo.ncut import (BatchedNCut, NCutConfig,
+                                             ncut_eigenvectors)
+
+    scenes = make_pseudo_scenes(**PSEUDO_ROW)
+    B = len(scenes)
+    torch.cuda.reset_peak_memory_stats()
+    row = bench_pseudo(dev, scenes=scenes, runs=3, log=log)
+    peak = torch.cuda.max_memory_allocated()
+    masks = row["masks"]
+    if not all(m.dtype == bool and m.shape[1] == 400 and len(m) >= 1
+               for m in masks):
+        raise AssertionError("pseudo row: a scene without a mask, or a bad "
+                             f"shape: {[m.shape for m in masks]}")
+    fa = torch.from_numpy(np.stack([s["features"] for s in scenes])).to(dev)
+    zeros = torch.zeros(B, 400, device=dev)
+    vec = ncut_eigenvectors(fa, fa, zeros, zeros.bool(), multimodal=False)
+    if not torch.isfinite(vec).all():
+        raise AssertionError("pseudo row: eigenvectors not finite")
+    runner = BatchedNCut(NCutConfig(), dev)
+    again = runner.run(scenes)
+    if not all(_same_masks(masks, again)):
+        raise AssertionError("pseudo row: two runs of the batch differ")
+    alone = runner.run(scenes[:1])[0]
+    same = _same_masks([alone], masks[:1])[0]
+    log(f"pseudo row cholinv: {row['ms_per_scene']:.3f}ms/scene "
+        f"({1e3 / row['ms_per_scene']:.1f} scenes/s), runs "
+        f"{[round(t, 1) for t in row['runs_ms']]}ms, first "
+        f"{row['first_ms']:.1f}ms, peak device memory {peak / 2**30:.2f} GiB, "
+        f"masks per scene {min(map(len, masks))}-{max(map(len, masks))}; two "
+        f"runs bitwise equal; scene 0 alone vs in the batch of {B}: "
+        + ("masks equal" if same else
+           f"masks DIFFER (alone {alone.shape}, batch {masks[0].shape}, "
+           f"matched IoU {matched_iou(alone, masks[0]):.3f})"))
+    eigh = bench_pseudo(dev, cfg=NCutConfig(solver="eigh"),
+                        scenes=scenes[:EIGH_SCENES], runs=1, log=log)
+    host = bench_pseudo(dev, cfg=NCutConfig(device_loop=False), scenes=scenes,
+                        runs=0, log=log)
+    log(f"pseudo row eigh ({EIGH_SCENES} scenes): "
+        f"{eigh['ms_per_scene']:.3f}ms/scene; host loop ({B} scenes, one "
+        f"run): {host['first_ms'] / B:.3f}ms/scene; matched IoU on the row "
+        f"(identity graph: no signal) cholinv vs eigh "
+        f"{np.mean([matched_iou(a, b) for a, b in zip(masks, eigh['masks'])]):.3f}"
+        f", device loop vs host loop "
+        f"{np.mean([matched_iou(a, b) for a, b in zip(masks, host['masks'])]):.3f}")
+
+    rows, busy, window = _traced(lambda: runner.run(scenes),
+                                 [ProfilerActivity.CUDA], reps=1)
+    if rows:
+        log(f"pseudo row profile (device tracing): device busy {busy:.1f}ms "
+            f"of a {window:.1f}ms traced run, idle share "
+            f"{1 - busy / window:.1%}; {sum(r[2] for r in rows)} device ops "
+            "per run")
+        for ms, name, n in rows[:8]:
+            log(f"  {ms:8.2f}ms {100 * ms / busy:5.1f}%  x{n:<5d} {name[:90]}")
+    else:
+        log("pseudo row profile: no device time in the trace (not measured)")
+
+    # solver agreement where the graphs carry signal
+    seg = _segment_scenes(EIGH_SCENES)
+    out = {}
+    for solver in ("cholinv", "eigh"):
+        cfg = NCutConfig(affinity_tau=0.6, solver=solver)
+        t0 = time.perf_counter()
+        out[solver] = BatchedNCut(cfg, dev).run(seg)
+        ms = 1e3 * (time.perf_counter() - t0) / len(seg)
+        rec = np.mean([object_recovery(m, s["objects"])
+                       for m, s in zip(out[solver], seg)])
+        out[solver, "rec"] = rec
+        log(f"  segment scenes ({len(seg)} x ~400, tau 0.6) {solver}: "
+            f"{ms:.3f}ms/scene (first run), planted-object recovery "
+            f"{rec:.3f}")
+        first3 = BatchedNCut(dataclasses.replace(
+            cfg, max_number_of_instances=3), dev).run(seg)
+        out[solver, "first3"] = first3
+    iou = np.mean([matched_iou(a, b)
+                   for a, b in zip(out["cholinv"], out["eigh"])])
+    iou3 = np.mean([matched_iou(a, b) for a, b in zip(
+        out["cholinv", "first3"], out["eigh", "first3"])])
+    log(f"  cholinv vs eigh on the segment scenes: mean matched IoU "
+        f"{iou:.3f} over 20 iterations, {iou3:.3f} over the first 3; "
+        f"recovery {out['cholinv', 'rec']:.3f} vs {out['eigh', 'rec']:.3f} "
+        f"(tol {RECOVERY_TOL:g})")
+    if not abs(out["cholinv", "rec"] - out["eigh", "rec"]) <= RECOVERY_TOL:
+        raise AssertionError("cholinv vs eigh planted-object recovery")
+
+
+def phase_pseudo_pipeline(dev):
+    """The bench scene through PseudoMaskPipeline(modality="geom") at full
+    width (Res16UNet34C, seeded random weights, res_2 features), bf16 and
+    f32: launch counts read around exactly the first call of each, masks
+    (P, K) bool over the full cloud, a second call timed by stage."""
+    from unscene3d_torch.data.synthetic import make_scene
+    from unscene3d_torch.ops.hashing import sparse_quantize
+    from unscene3d_torch.pseudo.pipeline import PseudoMaskPipeline
+
+    raw = make_scene(**BENCH_SCENE, seed=0)
+    t0 = time.perf_counter()
+    vox, umap, _ = sparse_quantize(raw["xyz"], VOXEL)
+    seg = raw["segments"][umap]
+    uniq = np.unique(seg)
+    conn = np.column_stack([uniq[:-1], uniq[1:]])
+    scene = dict(scene_name="bench0", coords=vox,
+                 feats=raw["features"][umap] - 0.5, segment_ids=[seg],
+                 segment_connectivity=[np.vstack([conn, conn[:, ::-1]])],
+                 full_coords=raw["xyz"])
+    log(f"pseudo pipeline scene: {len(raw['xyz'])} points, {len(vox)} "
+        f"voxels, {len(uniq)} segments (quantize "
+        f"{time.perf_counter() - t0:.2f}s)")
+    launches = {}
+    for dt in (torch.bfloat16, torch.float32):
+        pipe = PseudoMaskPipeline(modality="geom", device=dev, dtype=dt,
+                                  resolution_scale=2, voxel_size=VOXEL)
+        cnt = reset_counters()
+        first = pipe.process_scenes([scene])
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in cnt.items()}
+        for k, per in PER_CSC_FORWARD.items():
+            if got[k] != per:
+                raise AssertionError(f"pseudo pipeline {dt}: {k} launched "
+                                     f"{got[k]} times, expected {per}")
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+        t_first = dict(pipe.timings)
+        again = pipe.process_scenes([scene])
+        cloud, masks = first["bench0"]
+        if (masks.dtype != bool or masks.ndim != 2
+                or masks.shape[0] != len(raw["xyz"]) or masks.shape[1] < 1
+                or cloud.shape != raw["xyz"].shape):
+            raise AssertionError(f"pseudo pipeline {dt}: masks "
+                                 f"{masks.dtype} {masks.shape}")
+        if not np.array_equal(masks, again["bench0"][1]):
+            raise AssertionError(f"pseudo pipeline {dt}: two calls differ")
+        stages = ", ".join(f"{k} {1e3 * v:.0f}ms (first call "
+                           f"{1e3 * t_first[k]:.0f})"
+                           for k, v in pipe.timings.items())
+        log(f"pseudo pipeline {str(dt)[6:]}: masks {masks.shape}, "
+            f"{int(masks.any(1).sum())} points covered; two calls equal; "
+            f"launches {dict((k, v) for k, v in got.items() if v)}; {stages}")
+        del pipe
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pseudo_parity(dev):
+    """NCut on the card against the same code on the CPU, f32, 8 segment
+    scenes (connected tau-graphs): the first iteration's eigenvectors by
+    |cos| for both solvers, the masks of the first three greedy iterations,
+    and the matched IoU of whole runs (late iterations cut a painted-out,
+    near-degenerate remainder, where a last-bit difference picks another
+    vector: reported, not asserted)."""
+    import dataclasses
+
+    from unscene3d_torch.bench.pseudo import matched_iou
+    from unscene3d_torch.pseudo.ncut import (BatchedNCut, NCutConfig,
+                                             ncut_eigenvectors)
+
+    seg = _segment_scenes(NCUT_PARITY_SCENES)
+    B, S = len(seg), 448
+    fa = np.zeros((B, S, 96), np.float32)
+    invalid = np.ones((B, S), bool)
+    for b, s in enumerate(seg):
+        n = len(s["unique_segments"])
+        fa[b, :n], invalid[b, :n] = s["features"], False
+    fa, invalid = torch.from_numpy(fa), torch.from_numpy(invalid)
+    paint = torch.zeros(B, S)
+    for solver in ("cholinv", "eigh"):
+        kw = dict(tau=0.6, multimodal=False, solver=solver)
+        v_cpu = ncut_eigenvectors(fa, fa, paint, invalid, **kw)
+        v_gpu = ncut_eigenvectors(fa.to(dev), fa.to(dev), paint.to(dev),
+                                  invalid.to(dev), **kw).cpu()
+        cos = torch.nn.functional.cosine_similarity(
+            v_cpu.masked_fill(invalid, 0), v_gpu.masked_fill(invalid, 0))
+        cfg = NCutConfig(affinity_tau=0.6, solver=solver)
+        cfg3 = dataclasses.replace(cfg, max_number_of_instances=3)
+        same3 = _same_masks(BatchedNCut(cfg3, dev).run(seg),
+                            BatchedNCut(cfg3, "cpu").run(seg))
+        full_gpu = BatchedNCut(cfg, dev).run(seg)
+        full_cpu = BatchedNCut(cfg, "cpu").run(seg)
+        ious = [matched_iou(a, b) for a, b in zip(full_gpu, full_cpu)]
+        log(f"  NCut parity {solver} (f32, {B} segment scenes): first "
+            f"eigenvector cos min {cos.min().item():.6f}; masks of the first "
+            f"3 iterations equal in {sum(same3)} of {B} scenes; whole runs "
+            f"equal in {sum(_same_masks(full_gpu, full_cpu))} of {B}, mean "
+            f"matched IoU {np.mean(ious):.3f}")
+        if not cos.min().item() >= 0.999:
+            raise AssertionError(f"NCut parity {solver}: cos {cos}")
+        if not sum(same3) >= B - 1:
+            raise AssertionError(f"NCut parity {solver}: first-3 masks equal "
+                                 f"in only {sum(same3)} of {B} scenes")
+
+
 class _Pinned:
     """A matcher that answers with given indices; what its own matcher would
     have answered is kept in `own`."""
@@ -1110,9 +1459,14 @@ def main() -> int:
     phase_parity(dev, preds[torch.float32].model)
     del served
     res["brick_conv3"], launches["brick"] = phase_brick(dev, batches[()])
+    proto_res, launches["proto"] = phase_proto(dev)
+    res.update(proto_res)
     launches["eval_csr"] = phase_slice_csr(dev, scene0, preds)
     del preds
     torch.cuda.empty_cache()
+    phase_pseudo_row(dev)
+    launches["pseudo"] = phase_pseudo_pipeline(dev)
+    phase_pseudo_parity(dev)
 
     tbatch = train_batch()
     tbatch_csr = train_batch(CSR_LEVELS)
@@ -1135,7 +1489,9 @@ def main() -> int:
                  "conv3_bwd": (0, 128, 96, torch.bfloat16),
                  "conv3_dw": (0, 128, 96, torch.bfloat16),
                  "csr_conv3": (0, 128, 96, torch.bfloat16),
-                 "brick_conv3": (96, torch.bfloat16)}
+                 "brick_conv3": (96, torch.bfloat16),
+                 "brick_conv_proto": (96, torch.bfloat16),
+                 "win_decompose": "full"}
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         m = res[name][main_case[name]]

@@ -171,12 +171,41 @@ def test_port_imports_no_jax():
         "from unscene3d_torch.train.loop import build_trainer\n"
         "t = build_trainer(torch.float32, backbone='Res16UNet14A',"
         " hidden_dim=16, num_queries=4, num_heads=2, dim_feedforward=32,"
-        " num_decoders=1, sample_sizes=(16, 32, 64, 128, 256))\n"
+        " num_decoders=1, sample_sizes=(16, 32, 64, 128, 256),"
+        " device='cpu')\n"
         "b, _ = FreeMaskCollator(voxel_size=0.15, fps_queries=4)([scene])\n"
         "loss = t.train_step(b, torch.Generator().manual_seed(0))['total']\n"
         "assert torch.isfinite(loss)\n"
+        "import numpy as np\n"
+        "from unscene3d_torch.bench import proto_brick, proto_win_decompose\n"
+        "from unscene3d_torch.bench.pseudo import bench_pseudo\n"
+        "from unscene3d_torch.ops.hashing import sparse_quantize\n"
+        "from unscene3d_torch.pseudo.ncut import NCutConfig\n"
+        "from unscene3d_torch.pseudo.pipeline import PseudoMaskPipeline\n"
+        "small = dict(num_points=3000, num_objects=3, extent=2.0, seed=1)\n"
+        "quiet = lambda msg: None\n"
+        "proto_brick.run('cpu', channels=8, scene=small, voxel_size=0.05,"
+        " reps=1, log=quiet)\n"
+        "proto_win_decompose.run('cpu', cin=8, group=2, w_sub=256,"
+        " scene=small, reps=1, log=quiet)\n"
+        "cfg = NCutConfig(max_number_of_instances=2)\n"
+        "res = bench_pseudo('cpu', 2, 40, cfg=cfg, runs=1, log=quiet)\n"
+        "assert len(res['masks']) == 2\n"
+        "vox, umap, _ = sparse_quantize(scene['xyz'], 0.15)\n"
+        "seg = scene['segments'][umap]\n"
+        "u = np.unique(seg)\n"
+        "conn = np.column_stack([u[:-1], u[1:]])\n"
+        "pseudo = dict(scene_name='s', coords=vox,"
+        " feats=scene['features'][umap], segment_ids=[seg],"
+        " segment_connectivity=[np.vstack([conn, conn[:, ::-1]])],"
+        " full_coords=scene['xyz'])\n"
+        "for method in ('ncut', 'query'):\n"
+        "    pipe = PseudoMaskPipeline(device='cpu', voxel_size=0.15,"
+        " method=method, ncut_cfg=cfg)\n"
+        "    out = pipe.process_scenes([pseudo])\n"
+        "    assert out['s'][1].shape[0] == len(scene['xyz'])\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax',"
-        " 'jaxlib', 'unscene3d_tpu')]\n"
+        " 'jaxlib', 'unscene3d_tpu', 'benchmarks')]\n"
         "assert not bad, bad\n"
         "print('OK')\n")
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")

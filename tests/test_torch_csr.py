@@ -406,7 +406,8 @@ def train_runs(scenes):
 
     batch, _ = FreeMaskCollator(**kw)(scenes)
     tr = build_trainer(torch.float32, seed=None, backbone="Res16UNet14A",
-                       lr=LR, total_steps=STEPS, solver="scipy", **TINY)
+                       lr=LR, total_steps=STEPS, solver="scipy", device="cpu",
+                       **TINY)
     load_flax_variables(tr.model, variables)
     criterion_t = tr.criterion
     gen = torch.Generator().manual_seed(0)

@@ -12,6 +12,8 @@ Tolerances, relative to max|twin|: f32 1e-5 (summation order only); bf16
 8e-3 (an output may round one bf16 ulp apart). The dW kernel's output is f32
 in both dtypes (exact products summed in f32): 1e-5. Kernels 6 and 7 are
 also held against kernel 1's twin: the same function from other tables.
+Kernels 8 and 9 are emulated in tests/test_torch_kernels_emulated_proto.py (a
+file of its own, so that the two run on different workers).
 """
 
 import ctypes

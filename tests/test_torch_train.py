@@ -171,7 +171,8 @@ def torch_run(scenes, jax_run):
     variables, ref = jax_run
     batch, _ = FreeMaskCollator(voxel_size=VOXEL, fps_queries=10)(scenes)
     trainer = build_trainer(torch.float32, seed=None, backbone="Res16UNet14A",
-                            lr=LR, total_steps=STEPS, solver="scipy", **TINY)
+                            lr=LR, total_steps=STEPS, solver="scipy", device="cpu",
+                            **TINY)
     load_flax_variables(trainer.model, variables)
     criterion = trainer.criterion
     gen = torch.Generator().manual_seed(0)
@@ -458,3 +459,12 @@ def test_adamw_matches_optax():
         for a, b in zip(tp, jp):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
                                        atol=1e-7)
+
+
+def test_build_trainer_defaults_to_the_card():
+    """An entry point runs on the GPU unless the caller asks for the CPU: no
+    GPU means RuntimeError, never a quiet run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_trainer(torch.float32, backbone="Res16UNet14A", **TINY)

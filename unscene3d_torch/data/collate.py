@@ -25,7 +25,7 @@ from unscene3d_torch.data.batch import SceneBatch, Targets
 from unscene3d_torch.ops.hashing import sparse_quantize
 from unscene3d_torch.ops.kernel_maps import build_sparse_graph
 from unscene3d_torch.ops.segment_pool import segment_order
-from unscene3d_torch.ops.sparse_graph import LevelGraph, SparseGraph, bucket_size
+from unscene3d_torch.ops.sparse_graph import bucket_size, graph_from_levels
 
 # instance targets are padded to a multiple of 8, at least 8 (the JAX
 # collator's target_align default)
@@ -226,15 +226,7 @@ class FreeMaskCollator:
             target = _targets(per_scene, scene_rows, s_max, n0_pad)
 
         t = torch.from_numpy
-        graph = SparseGraph(tuple(
-            LevelGraph(coords=t(lv["coords"]), valid=t(lv["valid"]),
-                       nbr_idx=t(lv["nbr_idx"]), child_idx=t(lv["child_idx"]),
-                       parent_idx=t(lv["parent_idx"]),
-                       parent_offset=t(lv["parent_offset"]),
-                       finer_num_padded=lv["finer_num_padded"],
-                       up_idx=None if lv["up_idx"] is None
-                       else t(lv["up_idx"]), csr=lv["csr"])
-            for lv in levels))
+        graph = graph_from_levels(levels)
         batch = SceneBatch(
             graph=graph, features=t(features), raw_coords=t(raw_coords),
             point2segment=t(point2segment), seg_valid=t(seg_valid),

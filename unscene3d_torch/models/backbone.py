@@ -3,7 +3,8 @@ unscene3d_tpu/models/backbone.py).
 
 A 4-down/4-up UNet over the 5-level SparseGraph with skip concatenations,
 returning the full-res features, the FPN list [stride 16, 8, 4, 2, 1] the
-Mask3D decoder consumes, and the final k1 projection. Submodule names equal
+Mask3D decoder consumes, and the final k1 projection; in the `multires`
+call mode the final projection and the feature maps by stride. Submodule names equal
 the JAX package's, so the weight bridge maps names one to one.
 
 Eval folds each BatchNorm into its conv's epilogue. Training runs conv ->
@@ -76,8 +77,11 @@ class Res16UNetBase(nn.Module):
                 x = block(x, level)
         return x
 
-    def forward(self, features, graph: SparseGraph):
-        """features: (N0_pad, in_channels). Returns (res_1, fpn, final)."""
+    def forward(self, features, graph: SparseGraph, multires: bool = False):
+        """features: (N0_pad, in_channels). Returns (res_1, fpn, final), or
+        with `multires` (the reference's Res16UNet34CMultiRes: the same
+        weights) (final, {"res_1" .. "res_16"}), the decoder's feature map
+        at every stride, as the CSC feature extraction reads them."""
         if graph.num_levels != 5:
             raise ValueError("Res16UNet needs a 5-level SparseGraph")
         L = graph.levels
@@ -101,6 +105,8 @@ class Res16UNetBase(nn.Module):
                                    self.layers[4 + u])
             fpn.append(out)
         final = self.final(out, L[0])
+        if multires:
+            return final, {f"res_{2 ** (4 - i)}": f for i, f in enumerate(fpn)}
         return out, fpn, final
 
 

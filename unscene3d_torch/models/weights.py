@@ -9,7 +9,9 @@ initialisation.
     `scale` becomes `weight`;
   * `DenseGeneral` q/k/v kernels (D, H, dh) and biases (H, dh) are reshaped
     to (H*dh, D) / (H*dh,); out_proj kernels (H, dh, D) to (D, H*dh).
-`load_flax_variables` raises on any missing or unused key. It copies into
+`load_flax_variables` raises on any missing or unused key;
+`load_flax_backbone_variables` is the same bridge for a stand-alone backbone
+(the CSC feature extractor's). It copies into
 the model's params as they are stored: an eval model stores them in their
 module's compute dtype, so under bf16 the sparse-conv kernels and the
 transformer layers' Dense params are rounded once here rather than at every
@@ -110,6 +112,24 @@ def load_flax_variables(model: torch.nn.Module, variables) -> None:
             raise ValueError(f"weight bridge: {k} has shape {tuple(v.shape)}, "
                              f"model wants {tuple(own[k].shape)}")
     model.load_state_dict(state, strict=True)
+
+
+def load_flax_backbone_variables(backbone: torch.nn.Module, variables) -> None:
+    """Copy the variables of a stand-alone JAX backbone (`Res16UNet34C(...)
+    .init`: `{"params", "batch_stats"}` with the conv and BatchNorm modules
+    at the top) into `backbone`; raises on missing or unused keys and on
+    shape mismatches, as `load_flax_variables` does."""
+    load_flax_variables(_Prefixed(backbone), {
+        coll: {"backbone": tree} for coll, tree in variables.items()})
+
+
+class _Prefixed(torch.nn.Module):
+    """`backbone` under the name it has inside Mask3D, so that the bridge
+    reads its kernels as sparse-conv kernels (same layout), not as Dense."""
+
+    def __init__(self, backbone):
+        super().__init__()
+        self.backbone = backbone
 
 
 def _trunc_normal(shape, std, gen):

@@ -51,6 +51,11 @@ _SIGNATURES = {
     # g, w, asm_idx, scale, shift, residual, out, nb, sentinel, cin, cout,
     # relu, is_bf16, stream
     "brick_conv3": [_P] * 7 + [_I] * 6 + [_P],
+    # g, w, out, nb, cin, cout, is_bf16, stream
+    "proto_brick_conv": [_P] * 3 + [_I] * 4 + [_P],
+    # x, w, r0, starts, lidx, out, n_pad, group, w_sub, cin, cout, variant,
+    # stream
+    "win_decompose": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -71,6 +71,21 @@ class SparseGraph:
                                  for lv in self.levels))
 
 
+def graph_from_levels(levels: list[dict]) -> SparseGraph:
+    """The level dicts of ops/kernel_maps.py:build_sparse_graph (numpy) as a
+    SparseGraph of CPU tensors."""
+    t = torch.from_numpy
+    return SparseGraph(tuple(
+        LevelGraph(coords=t(lv["coords"]), valid=t(lv["valid"]),
+                   nbr_idx=t(lv["nbr_idx"]), child_idx=t(lv["child_idx"]),
+                   parent_idx=t(lv["parent_idx"]),
+                   parent_offset=t(lv["parent_offset"]),
+                   finer_num_padded=lv["finer_num_padded"],
+                   up_idx=None if lv["up_idx"] is None else t(lv["up_idx"]),
+                   csr=lv["csr"])
+        for lv in levels))
+
+
 def bucket_size(n: int, align: int = 128, min_size: int = 256,
                 fine: bool = False) -> int:
     """Round n up to a geometric bucket (unscene3d_tpu/ops/sparse_graph.py):

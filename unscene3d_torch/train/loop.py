@@ -159,7 +159,7 @@ def build_trainer(dtype=torch.float32, seed: int | None = 0,
                   backbone: str = "Res16UNet34C", lr: float = 1e-4,
                   total_steps: int = 10000, schedule: str = "onecycle",
                   weight_decay: float = 1e-2,
-                  solver: str = "auction", device="cpu",
+                  solver: str = "auction", device="cuda",
                   **model_kw) -> Trainer:
     """Mask3D(`backbone`) at conf/model/mask3d.yaml's widths with f32
     master params (seeded random unless seed is None), the set criterion of
@@ -167,8 +167,8 @@ def build_trainer(dtype=torch.float32, seed: int | None = 0,
     eos 0.1, matcher costs the same) and AdamW of conf/optimizer/adamw.yaml
     (lr 1e-4, weight decay 1e-2) under the onecycle schedule. Residual
     blocks are rematerialised in the backward (models/backbone.py). The
-    model and the optimizer state live on `device` ('cuda'
-    needs a GPU and raises without one)."""
+    model and the optimizer state live on `device`: the GPU unless the
+    caller asks for 'cpu' ('cuda' raises without a GPU)."""
     model = build_mask3d(dtype, backbone=backbone, seed=None,
                          **model_kw).float()
     if seed is not None:
