@@ -22,6 +22,7 @@ the H100's published peaks), and the last line is the contract line
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import sys
 import time
@@ -184,13 +185,23 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.load()
-    regs = [ln.strip() for ln in _build.build_log.splitlines()
-            if "registers" in ln or "spill" in ln]
     log(f"build: {time.perf_counter() - t0:.1f}s (nvcc ran: "
         f"{_build.build_seconds is not None}) sources="
         f"{[s.split('/')[-1] for s in _build.sources()]}")
-    for ln in regs:
-        log(f"  ptxas {ln}")
+    # ptxas -v per kernel: "Compiling entry function '<mangled>'", then its
+    # spill and register lines; every kernel keeps its values in registers
+    entry, spills = "", []
+    for ln in _build.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif "registers" in ln or "spill" in ln:
+            log(f"  ptxas {entry}: {ln.split(':', 1)[-1].strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m and m.groups() != ("0", "0"):
+                spills.append(entry)
+    if spills:
+        raise AssertionError(f"ptxas spills registers in {spills}")
 
 
 def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
@@ -302,7 +313,10 @@ def phase_kernels(dev, batch):
             work=(nbytes(xu, wu, table, L[0].valid)
                   + L[0].num_padded * 96 * xu.element_size(),
                   2 * hits(table) * 96 * 96, dtype))
-        # 8-child pool sums: coordinates (C=3) and mask features (C=128)
+        # 8-child pool sums: coordinates (C=3) and mask features (C=128);
+        # the library call: one embedding_bag sum over each row's 8 children
+        # with the miss row as padding_idx (no out-row mask)
+        bags = L[1].child_idx.t().contiguous()
         for c in (3, 128):
             xp = torch.randn(L[0].num_padded, c, generator=g).to(dev, dtype)
             res["k_apply_sum"][(c, dtype)] = _compare(
@@ -311,7 +325,9 @@ def phase_kernels(dev, batch):
                 lambda: k_apply_plain(xp, L[1].child_idx, None, L[1].valid),
                 work=(nbytes(xp, L[1].child_idx, L[1].valid)
                       + L[1].num_padded * c * xp.element_size(),
-                      hits(L[1].child_idx) * c, torch.float32))
+                      hits(L[1].child_idx) * c, torch.float32),
+                library=lambda: torch.nn.functional.embedding_bag(
+                    bags, xp, mode="sum", padding_idx=L[0].num_padded - 1))
         # segment mean-pool sum (204800, 128) -> (320, 128)
         S = batch.batch_size * batch.num_segments_padded
         seg_flat = (L[0].coords[:, 0].long() * batch.num_segments_padded
@@ -713,6 +729,13 @@ def phase_csr_kernels(dev, batch, tbatch):
     return res
 
 
+def dense_tflops(nb, cin, cout, ms):
+    """The dense brick conv's work (every window row of every brick, 27
+    offsets) over ms, as achieved TFLOP/s."""
+    flops = 2 * nb * 784 * 27 * cin * cout
+    return f"{flops / 1e12:.3f} TFLOP dense, {flops / ms / 1e9:.1f} TFLOP/s"
+
+
 def phase_brick(dev, batch):
     """Kernel 7 at the bench scene's level-0 brick graph: against its twin
     with the whole epilogue; disassemble(brick_conv3(assemble(x))) against
@@ -733,10 +756,19 @@ def phase_brick(dev, batch):
     pairs = sum(int((occ[:, win] & occ[:, be.WIN_LO + d:be.WIN_LO + d
                                        + be.WIN_N]).sum().item())
                 for d in be.K3_DELTAS)
+    # the bytes on the basis of the FLOPs: the whole output and asm_idx, g
+    # at the occupied cells an occupied window cell reads, the residual at
+    # the occupied window cells
+    g_rows = int((be.window_reach(occ) & occ).sum().item())
+    res_rows = int(occ[:, win].sum().item())
+    tiles = occ[:, win].reshape(bg.nb_pad, -1, 112).any(-1)
+    strips = occ[:, win].reshape(bg.nb_pad, -1, 16).any(-1)
     log(f"kernel 7 at the bench scene's L0 brick graph: {bg.nb_pad} bricks "
         f"(built in {time.perf_counter() - t0:.2f}s), "
         f"{occ.float().mean().item():.1%} of the cells occupied, {pairs} "
-        "occupied (cell, neighbour) pairs")
+        f"occupied (cell, neighbour) pairs; {1 - tiles.float().mean().item():.1%}"
+        f" of the 112-row tiles and {1 - strips.float().mean().item():.1%} of "
+        "the 16-row strips hold no occupied cell (kernel 7 skips them)")
     g = torch.Generator().manual_seed(3)
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -760,9 +792,13 @@ def phase_brick(dev, batch):
                 lambda: be.brick_conv3_plain(gb, w, bg, kw["scale"],
                                              kw["offset"], kw["residual"],
                                              True),
-                work=(nbytes(gb, w, bg.asm_idx, kw["scale"], kw["offset"],
-                             kw["residual"], gb), 2 * pairs * c * c, dtype),
+                work=(nbytes(w, bg.asm_idx, kw["scale"], kw["offset"], gb)
+                      + (g_rows + res_rows) * c * gb.element_size(),
+                      2 * pairs * c * c, dtype),
                 library=lambda: torch.nn.functional.conv3d(dense, w5))
+            log(f"    {dense_tflops(bg.nb_pad, c, c, res[(c, dtype)]['ms'])}, "
+                f"the same dense work through conv3d "
+                f"{dense_tflops(bg.nb_pad, c, c, res[(c, dtype)]['library_ms'])}")
             flat = be.disassemble(be.brick_conv3(gb, w, bg), bg, lvl)
             ref = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid)
             err = (flat.float() - ref.float()).abs().max().item()
@@ -1057,6 +1093,9 @@ def phase_proto(dev):
         lambda: proto_brick_conv_plain(g, w),
         work=(2 * nbytes(g) + nbytes(w), 2 * pairs * c * c, bf16),
         library=lambda: torch.nn.functional.conv3d(dense, w5))
+    m = res["brick_conv_proto"][(c, bf16)]
+    log(f"    {dense_tflops(nb, c, c, m['ms'])}, conv3d "
+        f"{dense_tflops(nb, c, c, m['library_ms'])}")
     k8 = proto_brick_conv(g, w)
     k7 = be.brick_conv3(g, w, bg)
     masked = k8 * occ[..., None].to(k8.dtype)

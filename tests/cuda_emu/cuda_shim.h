@@ -6,7 +6,12 @@
 // __syncthreads; blocks run one after another, so `__shared__` arrays become
 // function statics shared by the block's threads. Launches `k<<<g, b, s,
 // st>>>(args)` are rewritten to `emu_launch(g, b, s, st, [&] { k(args); })`
-// by the test before compiling with g++ -std=c++20. Warp intrinsics are not
+// by the test before compiling with g++ -std=c++20, and a dynamic
+// `extern __shared__ T name[];` to `T* name = (T*)emu_dynamic_smem();`: the
+// launch's third argument sizes that buffer. cp.async (the __pipeline_*
+// functions) lands at the wait that must see it, not before. A misaligned
+// WMMA pointer (the card needs 32 bytes) is reported by the next
+// cudaGetLastError, as cudaErrorMisalignedAddress. Warp intrinsics are not
 // emulated: the kernels use none.
 #pragma once
 #include <atomic>
@@ -14,6 +19,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <deque>
 #include <thread>
 #include <vector>
 
@@ -33,7 +39,66 @@ inline dim3 blockDim, gridDim;
 #define __shared__ static
 
 typedef void* cudaStream_t;
-inline int cudaGetLastError() { return 0; }
+typedef int cudaError_t;
+constexpr cudaError_t cudaSuccess = 0;
+constexpr cudaError_t cudaErrorMisalignedAddress = 716;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline std::atomic<int> g_emu_error{0};
+inline cudaError_t cudaGetLastError() { return g_emu_error.exchange(0); }
+template <class F>
+cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return uint4{x, y, z, w};
+}
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+
+// cp.async, per thread: a copy lands as late as the card allows, when
+// __pipeline_wait_prior(n) leaves fewer than n+1 of the thread's committed
+// groups outstanding (or when its block ends), so that a read before the
+// wait and the barrier sees stale data, as it may on the card.
+struct EmuCopy {
+  void* dst;
+  const void* src;
+  size_t n, zfill;
+};
+inline thread_local std::vector<EmuCopy> g_copies_open;
+inline thread_local std::deque<std::vector<EmuCopy>> g_copies_committed;
+inline void emu_land(const std::vector<EmuCopy>& group) {
+  for (const EmuCopy& c : group) {
+    std::memcpy(c.dst, c.src, c.n - c.zfill);
+    std::memset(static_cast<char*>(c.dst) + (c.n - c.zfill), 0, c.zfill);
+  }
+}
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t zfill = 0) {
+  g_copies_open.push_back({dst, src, n, zfill});
+}
+inline void __pipeline_commit() {
+  g_copies_committed.push_back(std::move(g_copies_open));
+  g_copies_open.clear();
+}
+inline void __pipeline_wait_prior(size_t n) {
+  while (g_copies_committed.size() > n) {
+    emu_land(g_copies_committed.front());
+    g_copies_committed.pop_front();
+  }
+}
+inline void emu_pipeline_drain() {
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+// the launch's dynamic shared memory, shared by the block's threads
+inline unsigned char* g_dynamic_smem = nullptr;
+inline unsigned char* emu_dynamic_smem() { return g_dynamic_smem; }
 
 struct __nv_bfloat16 {
   uint16_t v;
@@ -72,9 +137,16 @@ template <class F, class V>
 void fill_fragment(F& f, V v) {
   for (auto& e : f.x) e = v;
 }
+// WMMA loads and stores need a 256-bit aligned pointer on the card
+inline bool misaligned(const void* p) {
+  if (reinterpret_cast<uintptr_t>(p) % 32 == 0) return false;
+  g_emu_error.store(cudaErrorMisalignedAddress);
+  return true;
+}
 template <class Use, class T, class L>
 void load_matrix_sync(fragment<Use, 16, 16, 16, T, L>& f, const T* p,
                       unsigned ldm) {
+  if (misaligned(p)) return;
   for (int r = 0; r < 16; ++r)
     for (int c = 0; c < 16; ++c) f.x[r * 16 + c] = p[r * ldm + c];
 }
@@ -98,7 +170,7 @@ void mma_sync(fragment<accumulator, 16, 16, 16, float>& d,
 inline void store_matrix_sync(float* p,
                               const fragment<accumulator, 16, 16, 16, float>& f,
                               unsigned ldm, layout_t) {
-  if (threadIdx.x % 32 != 0) return;
+  if (misaligned(p) || threadIdx.x % 32 != 0) return;
   for (int r = 0; r < 16; ++r)
     for (int c = 0; c < 16; ++c) p[r * ldm + c] = f.x[r * 16 + c];
 }
@@ -125,9 +197,12 @@ inline int __syncthreads_or(int pred) {
 // grid in turn; the barrier after each block keeps the next block from
 // touching the shared statics before all threads have left the last one.
 template <class F>
-void emu_launch(dim3 grid, dim3 block, size_t, cudaStream_t, F body) {
+void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F body) {
   blockDim = block;
   gridDim = grid;
+  std::vector<unsigned char> dynamic(smem + 128);
+  g_dynamic_smem = dynamic.data() + (128 - reinterpret_cast<uintptr_t>(
+                                               dynamic.data()) % 128);
   const int nthr = static_cast<int>(block.x * block.y * block.z);
   std::barrier<> bar(nthr);
   g_block_barrier = &bar;
@@ -142,6 +217,7 @@ void emu_launch(dim3 grid, dim3 block, size_t, cudaStream_t, F body) {
           for (unsigned bx = 0; bx < grid.x; ++bx) {
             blockIdx = dim3(bx, by, bz);
             body();
+            emu_pipeline_drain();
             bar.arrive_and_wait();
           }
     });

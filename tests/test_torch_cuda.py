@@ -170,15 +170,50 @@ def test_csr_conv3_matches_twin_and_kernel_1(cuda, levels, dtype, lv, cin,
     _close(got, conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw), dtype)
 
 
+def _thin_level(level):
+    """The voxels of `level` whose x lies in the first two planes of their
+    8^3 brick, as a level of their own (neighbour map included): each of its
+    bricks has 112-row window tiles with no occupied cell."""
+    from unscene3d_torch.ops.kernel_maps import build_neighbor_map_padded
+    from unscene3d_torch.ops.sparse_graph import LevelGraph
+
+    coords = level.coords[level.valid].numpy()
+    keep = coords[coords[:, 1] % 8 < 2]
+    n_pad = -(-(len(keep) + 1) // 128) * 128
+    padded = np.zeros((n_pad, 4), np.int32)
+    padded[:len(keep)] = keep
+    valid = np.arange(n_pad) < len(keep)
+    z = torch.zeros(0, dtype=torch.int32)
+    return LevelGraph(
+        coords=torch.from_numpy(padded), valid=torch.from_numpy(valid),
+        nbr_idx=torch.from_numpy(build_neighbor_map_padded(keep, n_pad)),
+        child_idx=z, parent_idx=z, parent_offset=z)
+
+
+def _brick_case(levels, scene, cuda):
+    lvl = levels[0] if scene == "level0" else _thin_level(levels[0])
+    bg = be.build_brick_graph(lvl.coords.numpy(), lvl.valid.numpy()).to(cuda)
+    if scene == "thin":   # every real brick has an empty row tile
+        tiles = bg.occ[:, be.WIN_LO:be.WIN_LO + be.WIN_N].reshape(
+            bg.nb_pad, 7, 112).any(-1)
+        assert tiles.any(-1).sum() > 1 and not tiles.all(-1).any()
+    return lvl.to(cuda), bg
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,cout", [(3, 32), (32, 32), (96, 96), (40, 72)])
+@pytest.mark.parametrize("cin,cout,scene", [
+    pytest.param(3, 32, "level0", id="3-32"),
+    pytest.param(32, 32, "level0", id="32-32"),
+    pytest.param(96, 96, "level0", id="96-96"),
+    pytest.param(40, 72, "level0", id="40-72"),
+    pytest.param(64, 160, "level0", id="64-160"),   # two column tiles
+    pytest.param(32, 96, "thin", id="32-96-thin"),  # empty row tiles
+])
 def test_brick_conv3_matches_twin_and_kernel_1(cuda, levels, dtype, cin,
-                                               cout):
+                                               cout, scene):
     """Kernel 7 against its twin, halo rows zero, and
     disassemble(brick_conv3(assemble(x))) against kernel 1."""
-    lvl = levels[0]
-    bg = be.build_brick_graph(lvl.coords.numpy(), lvl.valid.numpy()).to(cuda)
-    lvl = lvl.to(cuda)
+    lvl, bg = _brick_case(levels, scene, cuda)
     g = torch.Generator().manual_seed(cout)
     x = (torch.randn(lvl.num_padded, cin, generator=g).to(cuda)
          * lvl.valid[:, None]).to(dtype)
@@ -198,6 +233,60 @@ def test_brick_conv3_matches_twin_and_kernel_1(cuda, levels, dtype, cin,
                                      kw["residual"], True), dtype)
     flat = be.disassemble(be.brick_conv3(gb, w, bg), bg, lvl)
     _close(flat, conv3_fwd(x, w, lvl.nbr_idx, lvl.valid), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cout", [32, 96])
+def test_brick_conv3_keeps_empty_cells_zero_near_nan(cuda, levels, dtype,
+                                                     cout):
+    """NaN in g wherever no occupied window cell reads it and in the
+    residual at every empty cell (scale, offset and residual, no ReLU, which
+    would clear a NaN): kernel 7, like its twin, writes every empty cell as
+    an exact zero, in skipped and computed tiles alike."""
+    lvl, bg = _brick_case(levels, "thin", cuda)
+    g = torch.Generator().manual_seed(cout)
+    x = (torch.randn(lvl.num_padded, 32, generator=g).to(cuda)
+         * lvl.valid[:, None]).to(dtype)
+    w = (torch.randn(27, 32, cout, generator=g) * 0.1).to(cuda, dtype)
+    gb = be.assemble(x, bg)
+    gb[~be.window_reach(bg.occ)] = float("nan")
+    kw = dict(scale=torch.rand(cout, generator=g).add(0.5).to(cuda),
+              offset=torch.randn(cout, generator=g).to(cuda),
+              residual=torch.randn(bg.nb_pad, be.CELLS, cout,
+                                   generator=g).to(cuda, dtype))
+    kw["residual"][~bg.occ] = float("nan")
+    got = be.brick_conv3(gb, w, bg, **kw)
+    assert torch.isfinite(got).all() and not got[~bg.occ].any()
+    _close(got, be.brick_conv3_plain(gb, w, bg, kw["scale"], kw["offset"],
+                                     kw["residual"]), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,scene", [
+    (3, 32, "level0"), (96, 96, "level0"), (40, 72, "level0"),
+    (64, 160, "level0"), (32, 96, "thin"),
+])
+def test_proto_brick_conv_matches_twin(cuda, levels, dtype, cin, cout,
+                                       scene):
+    """Kernel 8 against its twin on a NaN-filled output's shape (the kernel
+    writes every row), bitwise repeatable, and against kernel 7 without an
+    epilogue on the occupied cells."""
+    from unscene3d_torch.ops.proto_brick import (proto_brick_conv,
+                                                 proto_brick_conv_plain)
+
+    lvl, bg = _brick_case(levels, scene, cuda)
+    g = torch.Generator().manual_seed(cin)
+    x = (torch.randn(lvl.num_padded, cin, generator=g).to(cuda)
+         * lvl.valid[:, None]).to(dtype)
+    w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(cuda, dtype)
+    gb = be.assemble(x, bg)
+    got = proto_brick_conv(gb, w)
+    again = proto_brick_conv(gb, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, proto_brick_conv_plain(gb, w), dtype)
+    occ = bg.occ[..., None].to(got.dtype)
+    assert torch.equal(got * occ, be.brick_conv3(gb, w, bg))
 
 
 def test_csr_autograd_function_on_the_card(cuda, levels):

@@ -36,9 +36,12 @@ from unscene3d_torch.ops.csr_conv import build_csr_graph, csr_conv3_fwd_plain
 from unscene3d_torch.ops.k_apply import k_apply_plain
 from unscene3d_torch.ops.segment_pool import segment_order, segment_sum_plain
 
-SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu",
-                    "cuda_shim.h")
+EMU_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cuda_emu")
+SHIM = os.path.join(EMU_DIR, "cuda_shim.h")
 _LAUNCH = re.compile(r"(\w[\w:<>, ]*?)<<<(.*?)>>>\((.*?)\);", re.S)
+# dynamic shared memory: `extern __shared__ [__align__(n)] T name[];`
+_DYNAMIC_SMEM = re.compile(
+    r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?([\w ]+?)\s+(\w+)\[\];")
 TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}   # as tests/test_torch_cuda.py
 
 
@@ -48,14 +51,18 @@ def emu(tmp_path_factory):
     if cxx is None:
         pytest.skip("needs g++ with C++20 <barrier>")
     d = tmp_path_factory.mktemp("cuda_emu")
-    for name in ("cuda_runtime.h", "cuda_bf16.h", "mma.h"):  # in the shim
+    for name in ("cuda_runtime.h", "cuda_bf16.h", "mma.h",   # in the shim
+                 "cuda_pipeline.h"):
         (d / name).write_text("")
     cmd = [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
            "-include", SHIM, f"-I{d}", "-o", str(d / "emu.so")]
-    for path in glob.glob(os.path.join(_build.CSRC, "*.cu*")):
+    for path in (glob.glob(os.path.join(_build.CSRC, "*.cu*"))
+                 + [os.path.join(EMU_DIR, "shim_checks.cu")]):
         src = _LAUNCH.sub(
             lambda m: f"emu_launch({m.group(2)}, [&] {{ {m.group(1)}"
                       f"({m.group(3)}); }});", open(path).read())
+        src = _DYNAMIC_SMEM.sub(
+            r"\1* \2 = reinterpret_cast<\1*>(emu_dynamic_smem());", src)
         out = d / os.path.basename(path)
         out.write_text(src)
         if path.endswith(".cu"):
@@ -66,6 +73,8 @@ def emu(tmp_path_factory):
     for name, argtypes in _build._SIGNATURES.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
+    lib.emu_wmma_at.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.emu_wmma_at.restype = ctypes.c_int
     return lib
 
 
@@ -269,18 +278,15 @@ def test_emulated_csr_conv3_ragged_level(emu, dtype):
     _close(out, conv3_fwd_plain(x, w, nbr, valid), dtype)
 
 
-@pytest.fixture(scope="module")
-def bricks():
-    """~200 voxels over two adjacent bricks and the pad brick (the emulation
-    runs every thread of every block as a CPU thread: keep it small)."""
+def _brick_level(xyz, n_pad, nb_pad):
+    """A level of the given voxels padded to n_pad rows, and its brick graph
+    padded to nb_pad bricks."""
     import numpy as np
 
     from unscene3d_torch.ops.kernel_maps import build_neighbor_map_padded
     from unscene3d_torch.ops.sparse_graph import LevelGraph
 
-    rng = np.random.RandomState(0)
-    xyz = np.unique(rng.randint(0, [16, 8, 8], (260, 3)), axis=0)
-    n, n_pad = len(xyz), 256
+    n = len(xyz)
     assert n < n_pad
     coords = np.zeros((n_pad, 4), np.int32)
     coords[:n, 1:] = xyz
@@ -291,30 +297,73 @@ def bricks():
                      nbr_idx=torch.from_numpy(
                          build_neighbor_map_padded(coords[:n], n_pad)),
                      child_idx=z, parent_idx=z, parent_offset=z)
-    return lvl, be.build_brick_graph(coords, valid, nb_pad=3)
+    return lvl, be.build_brick_graph(coords, valid, nb_pad=nb_pad)
+
+
+@pytest.fixture(scope="module")
+def bricks():
+    """~200 voxels over two adjacent bricks and the pad brick (the emulation
+    runs every thread of every block as a CPU thread: keep it small)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    xyz = np.unique(rng.randint(0, [16, 8, 8], (260, 3)), axis=0)
+    return _brick_level(xyz, 256, 3)
+
+
+@pytest.fixture(scope="module")
+def thin_bricks():
+    """One brick whose voxels all lie at x < 2, and the pad brick: five of
+    the real brick's seven 112-row window tiles hold no occupied cell, and
+    so do some 16-row strips of the sixth."""
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    xyz = np.unique(rng.randint(0, [2, 8, 8], (80, 3)), axis=0)
+    lvl, bg = _brick_level(xyz, 128, 2)
+    win = bg.occ[:, be.WIN_LO:be.WIN_LO + be.WIN_N]
+    tiles = win.reshape(bg.nb_pad, 7, 112).any(-1)
+    assert tiles[0].sum() == 2 and not tiles[1].any()
+    return lvl, bg
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,cout,epi", [
-    (3, 32, "none"),
-    (16, 24, "all"),         # 32-wide f32 tiles, ragged bf16 tile
-    (40, 64, "all"),         # ragged Cin chunk, 64-wide tiles
+@pytest.mark.parametrize("cin,cout,epi,scene", [
+    # scalar staging of the rows
+    pytest.param(3, 32, "none", "bricks", id="3-32-none"),
+    # ragged Cout tile, scalar weights
+    pytest.param(16, 24, "all", "bricks", id="16-24-all"),
+    # ragged Cin chunk
+    pytest.param(40, 64, "all", "bricks", id="40-64-all"),
+    # six 16-wide Cout fragments
+    pytest.param(32, 96, "none", "bricks", id="32-96-none"),
+    # empty row tiles on a real brick
+    pytest.param(24, 40, "all", "thin_bricks", id="24-40-all-thin"),
+    # NaN inputs within reach of empty cells only
+    pytest.param(24, 40, "nan", "thin_bricks", id="24-40-nan-thin"),
 ])
-def test_emulated_brick_conv3(emu, bricks, dtype, cin, cout, epi):
-    """Kernel 7 against its twin, the ragged last row tile, the pad brick and
-    the zeroed halo rows included; the output buffer starts as NaN."""
-    lvl, bg = bricks
+def test_emulated_brick_conv3(emu, request, dtype, cin, cout, epi, scene):
+    """Kernel 7 against its twin, the pad brick, the empty row tiles it
+    skips and the zeroed halo rows included; the output buffer starts as
+    NaN. epi "nan": scale, shift and residual without ReLU (which would
+    clear a NaN), NaN in g wherever no occupied window cell reads it and in
+    the residual at every empty cell; an empty cell stays an exact zero, in
+    a skipped tile or strip as in a computed one."""
+    lvl, bg = request.getfixturevalue(scene)
     g = torch.Generator().manual_seed(cin)
     x = (torch.randn(lvl.num_padded, cin, generator=g)
          * lvl.valid[:, None]).to(dtype)
     w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(dtype)
     gb = be.assemble(x, bg).contiguous()
     sc = sh = res = None
-    if epi == "all":
+    if epi != "none":
         sc = torch.rand(cout, generator=g) + 0.5
         sh = torch.randn(cout, generator=g)
         res = torch.randn(bg.nb_pad, be.CELLS, cout, generator=g).to(dtype)
     relu = epi == "all"
+    if epi == "nan":
+        gb[~be.window_reach(bg.occ)] = float("nan")
+        res[~bg.occ] = float("nan")
     out = torch.full((bg.nb_pad, be.CELLS, cout), float("nan"), dtype=dtype)
     code = emu.brick_conv3(_p(gb), _p(w), _p(bg.asm_idx), _p(sc), _p(sh),
                            _p(res), _p(out), bg.nb_pad, bg.n_pad - 1, cin,
@@ -327,3 +376,17 @@ def test_emulated_brick_conv3(emu, bricks, dtype, cin, cout, epi):
     if epi == "none":   # the same function as kernel 1 on the flat level
         _close(be.disassemble(out, bg, lvl),
                conv3_fwd_plain(x, w, lvl.nbr_idx, lvl.valid), dtype)
+
+
+@pytest.mark.parametrize("offset,aligned", [(0, True), (16, True),
+                                            (8, False), (3, False)])
+def test_emulation_rejects_misaligned_wmma_pointers(emu, offset, aligned):
+    """The card needs 32-byte aligned WMMA fragment pointers: the shim
+    reports any other as cudaErrorMisalignedAddress (716), so that a shifted
+    fragment the card would reject fails here first."""
+    out = torch.full((16, 16), float("nan"))
+    code = emu.emu_wmma_at(offset, _p(out))
+    if aligned:
+        assert code == 0 and torch.equal(out, torch.full((16, 16), 16.0))
+    else:
+        assert code == 716

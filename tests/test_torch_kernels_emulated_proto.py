@@ -10,23 +10,29 @@ import pytest
 import torch
 
 from tests.test_torch_kernels_emulated import (_close, _p, bricks,  # noqa: F401
-                                               emu, levels)
+                                               emu, levels, thin_bricks)
 from unscene3d_torch.ops import brick_engine as be
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("cin,cout", [
-    (3, 32),         # narrow input, 32-wide f32 tiles
-    (40, 24),        # ragged Cin chunk, ragged bf16 Cout tile
-    (16, 64),        # 64-wide tiles
+@pytest.mark.parametrize("cin,cout,scene", [
+    # narrow input, scalar staging of the rows
+    pytest.param(3, 32, "bricks", id="3-32"),
+    # ragged Cin chunk, ragged Cout tile
+    pytest.param(40, 24, "bricks", id="40-24"),
+    pytest.param(16, 64, "bricks", id="16-64"),
+    # six 16-wide Cout fragments
+    pytest.param(32, 96, "bricks", id="32-96"),
+    # row tiles with no occupied cell
+    pytest.param(24, 40, "thin_bricks", id="24-40-thin"),
 ])
-def test_emulated_proto_brick_conv(emu, bricks, dtype, cin, cout):
-    """Kernel 8 against its twin on a NaN-filled output: the ragged last row
-    tile, the zeroed rows [0, 111) and [895, 1008), and no occupancy mask
-    (empty interior cells keep their neighbours' sums)."""
+def test_emulated_proto_brick_conv(emu, request, dtype, cin, cout, scene):
+    """Kernel 8 against its twin on a NaN-filled output: the zeroed rows [0,
+    111) and [895, 1008), and no occupancy mask (empty interior cells, also
+    in row tiles with no occupied cell, keep their neighbours' sums)."""
     from unscene3d_torch.ops.proto_brick import proto_brick_conv_plain
 
-    lvl, bg = bricks
+    lvl, bg = request.getfixturevalue(scene)
     g = torch.Generator().manual_seed(cin)
     x = (torch.randn(lvl.num_padded, cin, generator=g)
          * lvl.valid[:, None]).to(dtype)

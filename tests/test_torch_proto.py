@@ -330,3 +330,28 @@ def test_proto_brick_twin_is_used_for_cpu_tensors_only():
     assert (proto_brick_conv.launches, win_conv_variant.launches) == before
     with pytest.raises(ValueError):
         proto_brick_conv(g.to("meta"), w.to("meta"))
+
+
+def test_sass_opcode_counts():
+    """`bench/sass.py` counts each kernel's opcodes from cuobjdump's SASS,
+    predicated instructions included."""
+    from unscene3d_torch.bench.sass import opcode_counts
+
+    sass = """
+\tcode for sm_90a
+\t\tFunction : _Z3fooPf
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LD.E R76, desc[UR10][R64.64] ;
+        /*0020*/              @!P0 MOVM.16.MT88 R4, R4 ;
+        /*0030*/                   HMMA.16816.F32.BF16 R8, R4, R6, R8 ;
+        /*0040*/                   HMMA.16816.F32.BF16 R12, R4, R7, R12 ;
+\t\tFunction : _Z3barPf
+        /*0000*/                   LDS.128 R4, [R2] ;
+        /*0010*/              @P1 BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   EXIT ;
+"""
+    counts = opcode_counts(sass)
+    assert list(counts) == ["_Z3fooPf", "_Z3barPf"]
+    assert counts["_Z3fooPf"] == {"LDC": 1, "LD": 1, "MOVM": 1, "HMMA": 2}
+    assert counts["_Z3barPf"] == {"LDS": 1, "BAR": 1, "EXIT": 1}

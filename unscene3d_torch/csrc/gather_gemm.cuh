@@ -23,7 +23,8 @@
 // fixed order: no atomics, bitwise deterministic. wgmma and cp.async/TMA
 // staging are later work; valid-pair compaction is kernel 6 (csr_conv.cu).
 // The weight staging, the per-chunk products and the epilogue are device
-// functions that kernel 7 (brick_conv.cu) and kernel 6 share.
+// functions that kernel 6 shares; kernels 7 and 8 (brick_tile.cuh) share the
+// epilogue and the accumulator fragment.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -56,8 +57,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 constexpr int kThreads = 256;  // threads per block
 constexpr int kTK = 32;        // Cin chunk staged per step
 
-// The fused epilogue on one f32 accumulator, shared by kernels 1, 2, 4, 6
-// and 7: *scale + shift, + residual, ReLU, then the mask vm (0 or 1); `off`
+// The fused epilogue on one f32 accumulator, shared by kernels 1, 2, 4, 6,
+// 7 and 8: *scale + shift, + residual, ReLU, then the mask vm (0 or 1); `off`
 // is the element's offset in residual and out, `co` its output channel.
 template <typename T>
 __device__ __forceinline__ void epilogue_store(

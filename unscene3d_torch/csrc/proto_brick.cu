@@ -14,40 +14,39 @@
 //
 // Bound on the H100: the dense slabs' bytes against the products of every
 // cell, occupied or not. Its own entry points over brick_tile.cuh's slab
-// tiles (one 256-thread block per brick, row tile and Cout tile; bf16 WMMA
-// or f32 FMA with f32 accumulation; the ragged last row tile masked), called
-// without a mask and without an epilogue. Fixed summation order, no atomics.
+// tiles (one block per brick, 112-row window tile and column tile of up to
+// 128; the tile's row union staged once per Cin chunk and read at 27
+// shifts; bf16 WMMA or f32 FMA with f32 accumulation), called without a
+// mask, so every row tile is multiplied, and without an epilogue. Fixed
+// summation order, no atomics.
 #include "brick_tile.cuh"
 
 namespace {
 
 using namespace us3d;
 
-template <typename T, int TN>
-__global__ void __launch_bounds__(kThreads)
-proto_brick_kernel(const T* __restrict__ g, const T* __restrict__ w,
-                   T* __restrict__ out, int row_tiles, int cin, int cout) {
-  brick_tile_fma<T, TN>(g, w, nullptr, nullptr, nullptr, nullptr, out,
-                        row_tiles, 0, cin, cout, 0);
+template <class Tile>
+__global__ void __launch_bounds__(Tile::kThreads)
+proto_brick_kernel(const typename Tile::T* __restrict__ g,
+                   const typename Tile::T* __restrict__ w,
+                   typename Tile::T* __restrict__ out, int cin, int cout) {
+  brick_tile<Tile>(g, w, nullptr, nullptr, nullptr, nullptr, out, 0, cin,
+                   cout, 0);
 }
 
-template <typename T>   // T = __nv_bfloat16
-__global__ void __launch_bounds__(kThreads)
-proto_brick_tc_kernel(const T* __restrict__ g, const T* __restrict__ w,
-                      T* __restrict__ out, int row_tiles, int cin,
-                      int cout) {
-  brick_tile_tc<T>(g, w, nullptr, nullptr, nullptr, nullptr, out, row_tiles,
-                   0, cin, cout, 0);
-}
-
-template <typename T, int TN>
-void launch_fma(const void* g, const void* w, void* out, int nb, int cin,
-                int cout, cudaStream_t st) {
-  int row_tiles;
-  dim3 grid = brick_grid_fma<TN>(nb, cout, &row_tiles);
-  proto_brick_kernel<T, TN><<<grid, kThreads, 0, st>>>(
+template <class Tile>
+int launch(const void* g, const void* w, void* out, int nb, int cin,
+           int cout, cudaStream_t st) {
+  using T = typename Tile::T;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      proto_brick_kernel<Tile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile::kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  proto_brick_kernel<Tile><<<brick_grid<Tile>(nb, cout), Tile::kThreads,
+                             Tile::kSmemBytes, st>>>(
       static_cast<const T*>(g), static_cast<const T*>(w),
-      static_cast<T*>(out), row_tiles, cin, cout);
+      static_cast<T*>(out), cin, cout);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -56,18 +55,8 @@ void launch_fma(const void* g, const void* w, void* out, int nb, int cin,
 extern "C" int proto_brick_conv(const void* g, const void* w, void* out,
                                 int nb, int cin, int cout, int is_bf16,
                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    int row_tiles;
-    dim3 grid = brick_grid_tc(nb, cout, &row_tiles);
-    proto_brick_tc_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(g), static_cast<const T*>(w),
-        static_cast<T*>(out), row_tiles, cin, cout);
-  } else if (cout % 64 == 0) {
-    launch_fma<float, 64>(g, w, out, nb, cin, cout, st);
-  } else {
-    launch_fma<float, 32>(g, w, out, nb, cin, cout, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return with_brick_tile(is_bf16, cout, [&](auto tile) {
+    return launch<decltype(tile)>(g, w, out, nb, cin, cout,
+                                  static_cast<cudaStream_t>(stream));
+  });
 }

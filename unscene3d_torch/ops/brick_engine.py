@@ -8,9 +8,9 @@ axis and the conv is 27 dense slice products with no gather:
 
   1. `assemble`: one row gather packs (N, C) features into (nb, 1008, C);
   2. `brick_conv3` (kernel 7, csrc/brick_conv.cu): window rows [111, 895)
-     cover every interior cell; out = occ * epi(sum_k g[:, 111 + d_k + r] @
-     w[k]) with the scale/offset, residual, ReLU epilogue and the occupancy
-     mask fused, halo rows written as zeros;
+     cover every interior cell; out = epi(sum_k g[:, 111 + d_k + r] @ w[k])
+     at occupied cells and 0 elsewhere, the scale/offset, residual, ReLU
+     epilogue and the occupancy mask fused, halo rows written as zeros;
   3. `halo_exchange`: halo cells refreshed from the neighbour bricks'
      interiors with 26 slab slices and brick-row takes;
   4. `disassemble`: one take back to the flat (N, C) layout;
@@ -19,7 +19,8 @@ axis and the conv is 27 dense slice products with no gather:
 Everything but kernel 7 is plain torch, as it is plain XLA in the JAX
 package. `brick_conv3` runs its plain twin for CPU tensors only; for a CUDA
 tensor it launches the kernel or raises, and `brick_conv3.launches` counts
-the launches. Bound on the H100: the dense slabs' bytes. The engine is
+the launches. Bound on the H100: the bytes of the dense output slab (g
+and the residual are needed only near occupied cells). The engine is
 reached through these functions only; no model path routes to it.
 """
 
@@ -177,7 +178,9 @@ def brick_conv3_plain(g, w, bg: BrickGraph, scale=None, offset=None,
                       residual=None, relu=False):
     """Plain PyTorch twin of kernel 7: the 27 shifted slice products of
     brick_engine.py:_conv_kernel in f32, the epilogue, the occupancy mask,
-    zero halo rows."""
+    zero halo rows. The mask selects: an empty cell is an exact zero even
+    where a non-finite input reaches it (the JAX op multiplies by the mask,
+    which is the same on finite inputs)."""
     cout = w.shape[-1]
     gf = g.float()
     wf = w.float()
@@ -192,10 +195,20 @@ def brick_conv3_plain(g, w, bg: BrickGraph, scale=None, offset=None,
         y = y + residual[:, WIN_LO: WIN_LO + WIN_N, :].float()
     if relu:
         y = torch.clamp_min(y, 0.0)
-    y = y * bg.occ[:, WIN_LO: WIN_LO + WIN_N, None].to(torch.float32)
+    y = torch.where(bg.occ[:, WIN_LO: WIN_LO + WIN_N, None], y, 0.0)
     out = torch.zeros(g.shape[0], CELLS, cout, dtype=g.dtype, device=g.device)
     out[:, WIN_LO: WIN_LO + WIN_N, :] = y.to(g.dtype)
     return out
+
+
+def window_reach(occ):
+    """(nb, CELLS) bool: the cells that an occupied window cell reads through
+    one of the 27 offsets, which are all that kernel 7 needs of g."""
+    win = occ[:, WIN_LO: WIN_LO + WIN_N]
+    reach = torch.zeros_like(occ)
+    for d in K3_DELTAS:
+        reach[:, WIN_LO + d: WIN_LO + d + WIN_N] |= win
+    return reach
 
 
 def _affine(scale, offset, cout, device):
