@@ -8,7 +8,8 @@ level 0, the two prototype entry points `unscene3d_torch.bench.proto_*`
 (kernels 8 and 9) at that level, and the pseudo-mask half: the batched NCut
 row (64 scenes x 400 segments x 96 features) and the bench scene through
 `unscene3d_torch.pseudo.pipeline`; it checks card-vs-CPU parity on a
-mid-size scene and on 8 NCut scenes.
+mid-size scene and on 8 NCut scenes, and reports whether two train steps
+from the same state are bitwise equal (a printed finding).
 
     python3 chip_smoke.py
 
@@ -431,6 +432,23 @@ def _traced(fn, activities, reps=3):
     return rows, sum(r[0] for r in rows), start.elapsed_time(end) / reps
 
 
+# kernels of the port summed by body in a trace: name substring -> label
+KERNEL_FAMILIES = {"gather_gemm": "gather-GEMM (kernels 1, 2 weighted, 4 dx)",
+                   "dw_": "dW (kernel 5, with its range sum)"}
+
+
+def _family_shares(rows, busy, what):
+    """One line: each family's device ms, share of the busy time and
+    launches per traced call."""
+    parts = []
+    for key, label in KERNEL_FAMILIES.items():
+        hit = [r for r in rows if key in r[1]]
+        ms = sum(r[0] for r in hit)
+        parts.append(f"{label} {ms:.2f}ms {100 * ms / busy:.1f}% "
+                     f"x{sum(r[2] for r in hit)}")
+    log(f"  by body, per {what}: " + "; ".join(parts))
+
+
 def phase_profile(preds, served):
     """Where a warm bf16 forward spends device time: backbone vs the whole
     forward (CUDA events), and device time by kernel (torch.profiler). The
@@ -467,6 +485,7 @@ def phase_profile(preds, served):
         for ms, name, n in rows[:12]:
             log(f"  {ms:8.2f}ms {100 * ms / busy:5.1f}%  x{n:<4d} "
                 f"{name[:90]}")
+        _family_shares(rows, busy, "forward")
 
 
 def phase_parity(dev, model32):
@@ -606,6 +625,88 @@ def phase_train(dev, batch):
     return launches, trainer, gen
 
 
+def phase_train_repeat(dev, trainer, batch):
+    """Whole-step bitwise repeatability of training: two
+    Trainer.train_step calls from the same state (params, AdamW moments and
+    count, BN running stats), the same batch and a generator seeded alike;
+    every gradient and every tensor of the state after the step compared
+    bitwise; they must be equal, as the reference's steps are. Where they
+    differ, one more pair of steps under
+    torch.use_deterministic_algorithms(True, warn_only=True) first names
+    the ops that have no deterministic implementation and says whether that
+    setting makes the steps equal, at what cost. The kernels' own
+    repeatability is asserted one by one in the kernel phases."""
+    import warnings
+
+    model, opt = trainer.model, trainer.optimizer
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    moments = ([m.clone() for m in opt.mu], [v.clone() for v in opt.nu],
+               opt.count)
+    step_of = type(trainer).loss_and_grads
+
+    def one_step():
+        with torch.no_grad():
+            for k, v in model.state_dict().items():
+                v.copy_(state[k])
+            for dst, src in zip(opt.mu + opt.nu, moments[0] + moments[1]):
+                dst.copy_(src)
+        opt.count = moments[2]
+        grads = []
+
+        def recorded(self, b, generator=None):
+            losses, gr = step_of(self, b, generator)
+            grads.extend(g.clone() for g in gr)
+            return losses, gr
+
+        trainer.loss_and_grads = recorded.__get__(trainer)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(batch,
+                               torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            del trainer.loss_and_grads
+        after = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        return grads, after, ms
+
+    def differing(a, b):
+        names = [n for n, _ in model.named_parameters()]
+        out = [f"grad {n}" for n, x, y in zip(names, a[0], b[0])
+               if not torch.equal(x, y)]
+        return out + [k for k in a[1] if not torch.equal(a[1][k], b[1][k])]
+
+    first, second = one_step(), one_step()
+    diff = differing(first, second)
+    verdict = "bitwise EQUAL" if not diff else "DIFFERENT"
+    log(f"train step repeatability (bf16, batch {TRAIN_BATCH}, same state, "
+        f"batch and generator seed): {verdict}"
+        f" ({len(first[0])} gradients, {len(first[1])} state tensors; "
+        f"steps {first[2]:.1f} / {second[2]:.1f} ms)"
+        + (f"; {len(diff)} differ, first {diff[:6]}" if diff else ""))
+    result = {"equal": not diff, "differ": diff}
+    if diff:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                det = one_step(), one_step()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        ops = sorted({str(w.message).split(" does not have")[0][:160]
+                      for w in caught if "determinis" in str(w.message)})
+        det_diff = differing(*det)
+        log(f"  under use_deterministic_algorithms(warn_only): steps "
+            f"{'bitwise EQUAL' if not det_diff else 'still DIFFERENT'} "
+            f"({len(det_diff)} differ), {det[0][2]:.1f} / {det[1][2]:.1f} ms; "
+            f"ops without a deterministic implementation: {ops}")
+        result.update(ops=ops, deterministic_equal=not det_diff)
+        raise AssertionError(f"two train steps from the same state differ: "
+                             f"{result}")
+    return result
+
+
 def phase_train_profile(trainer, batch, gen):
     """One more bf16 step split by part (CUDA events on the stream: forward,
     matcher, criterion, backward, AdamW + BN update), then a step under
@@ -648,6 +749,7 @@ def phase_train_profile(trainer, batch, gen):
         f"{sum(r[2] for r in rows)} device ops per step")
     for ms, name, n in rows[:12]:
         log(f"  {ms:8.2f}ms {100 * ms / busy:5.1f}%  x{n:<4d} {name[:90]}")
+    _family_shares(rows, busy, "train step")
 
 def phase_csr_kernels(dev, batch, tbatch):
     """Kernel 6 against its twin and against kernel 1 on the same inputs
@@ -661,6 +763,7 @@ def phase_csr_kernels(dev, batch, tbatch):
                                               csr_conv3_fwd_plain, csr_dw)
 
     L = [lv.to(dev) for lv in batch.graph.levels]
+    dw_vs_csr = {}   # dtype -> (csr_dw ms, kernel 5 ms) on the same data
     log("kernel 6 vs its twin and vs kernel 1 at the csr_levels bench "
         f"scene's shapes (rows per level {[lv.num_padded for lv in L]}, "
         f"pairs {[lv.csr.num_pairs if lv.csr else None for lv in L]})")
@@ -724,9 +827,10 @@ def phase_csr_kernels(dev, batch, tbatch):
             f"conv3_dw_ms={k5_ms:.3f}")
         if not err <= DW_TOL[dtype]:
             raise AssertionError(f"csr_dw vs conv3_dw {dtype}: {err}")
+        dw_vs_csr[dtype] = (dw_ms, k5_ms)
         del x, w, gm, wf, dw, dw5, lvl
         torch.cuda.empty_cache()
-    return res
+    return res, dw_vs_csr
 
 
 def dense_tflops(nb, cin, cout, ms):
@@ -1510,9 +1614,11 @@ def main() -> int:
     tbatch = train_batch()
     tbatch_csr = train_batch(CSR_LEVELS)
     res.update(phase_train_kernels(dev, tbatch))
-    res["csr_conv3"] = phase_csr_kernels(dev, batches[CSR_LEVELS], tbatch_csr)
+    res["csr_conv3"], dw_vs_csr = phase_csr_kernels(dev, batches[CSR_LEVELS],
+                                                    tbatch_csr)
     tbatch = tbatch.to(dev)
     launches["train"], trainer, gen = phase_train(dev, tbatch)
+    phase_train_repeat(dev, trainer, tbatch)
     phase_train_profile(trainer, tbatch, gen)
     del trainer, tbatch
     torch.cuda.empty_cache()
@@ -1544,6 +1650,13 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in res[name].values()),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=m["library_ms"]))
+        if name == "conv3_dw":   # beside csr_dw (plain torch), same data
+            csr_ms, k5_ms = dw_vs_csr[torch.bfloat16]
+            kernels[-1].update(csr_dw_ms=csr_ms, ms_beside_csr_dw=k5_ms)
+            log(f"kernel 5 (conv3_dw) train L0 128->96 bf16: {m['ms']:.3f} "
+                f"ms, bound {m['bound_ms']:.4f}; on the csr_levels batch's "
+                f"level 0 in this run: conv3_dw {k5_ms:.3f} ms, csr_dw "
+                f"(plain torch over the pair tables) {csr_ms:.3f} ms")
     log(f"total {time.perf_counter() - T_START:.1f}s on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

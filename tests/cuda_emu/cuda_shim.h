@@ -11,8 +11,9 @@
 // launch's third argument sizes that buffer. cp.async (the __pipeline_*
 // functions) lands at the wait that must see it, not before. A misaligned
 // WMMA pointer (the card needs 32 bytes) is reported by the next
-// cudaGetLastError, as cudaErrorMisalignedAddress. Warp intrinsics are not
-// emulated: the kernels use none.
+// cudaGetLastError, as cudaErrorMisalignedAddress. Of the warp intrinsics
+// only __ballot_sync is emulated (every lane of the warp must call it), with
+// __popc beside it.
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -20,7 +21,9 @@
 #include <cstdint>
 #include <cstring>
 #include <deque>
+#include <memory>
 #include <thread>
+#include <type_traits>
 #include <vector>
 
 struct dim3 {
@@ -120,11 +123,15 @@ inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
 
 #define __align__(n) __attribute__((aligned(n)))
 
-// WMMA: every thread of the warp holds the whole 16x16 tile and computes
-// the whole product (the hardware splits it across the warp); lane 0 stores.
+// WMMA: lane 0 of the warp holds the whole 16x16 tile, computes the whole
+// product (the hardware splits it across the warp) and stores it; the other
+// lanes' fragments stay unused, which is exact for kernels that touch
+// fragments only through these calls (warp-uniform, as the API requires).
+// Every lane checks the pointer's alignment.
 namespace nvcuda {
 namespace wmma {
 struct row_major {};
+struct col_major {};
 struct matrix_a {};
 struct matrix_b {};
 struct accumulator {};
@@ -133,8 +140,10 @@ template <class Use, int M, int N, int K, class T, class Layout = void>
 struct fragment {
   T x[16 * 16];
 };
+inline bool lane0() { return threadIdx.x % 32 == 0; }
 template <class F, class V>
 void fill_fragment(F& f, V v) {
+  if (!lane0()) return;
   for (auto& e : f.x) e = v;
 }
 // WMMA loads and stores need a 256-bit aligned pointer on the card
@@ -146,9 +155,11 @@ inline bool misaligned(const void* p) {
 template <class Use, class T, class L>
 void load_matrix_sync(fragment<Use, 16, 16, 16, T, L>& f, const T* p,
                       unsigned ldm) {
-  if (misaligned(p)) return;
+  if (misaligned(p) || !lane0()) return;
+  constexpr bool kColMajor = std::is_same_v<L, col_major>;
   for (int r = 0; r < 16; ++r)
-    for (int c = 0; c < 16; ++c) f.x[r * 16 + c] = p[r * ldm + c];
+    for (int c = 0; c < 16; ++c)
+      f.x[r * 16 + c] = kColMajor ? p[c * ldm + r] : p[r * ldm + c];
 }
 inline float as_float(float v) { return v; }
 inline float as_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -157,6 +168,7 @@ void mma_sync(fragment<accumulator, 16, 16, 16, float>& d,
               const fragment<matrix_a, 16, 16, 16, T, LA>& a,
               const fragment<matrix_b, 16, 16, 16, T, LB>& b,
               const fragment<accumulator, 16, 16, 16, float>& c) {
+  if (!lane0()) return;
   float t[16 * 16];
   for (int r = 0; r < 16; ++r)
     for (int n = 0; n < 16; ++n) {
@@ -170,7 +182,7 @@ void mma_sync(fragment<accumulator, 16, 16, 16, float>& d,
 inline void store_matrix_sync(float* p,
                               const fragment<accumulator, 16, 16, 16, float>& f,
                               unsigned ldm, layout_t) {
-  if (misaligned(p) || threadIdx.x % 32 != 0) return;
+  if (misaligned(p) || !lane0()) return;
   for (int r = 0; r < 16; ++r)
     for (int c = 0; c < 16; ++c) p[r * ldm + c] = f.x[r * 16 + c];
 }
@@ -179,6 +191,30 @@ inline void store_matrix_sync(float* p,
 
 inline std::barrier<>* g_block_barrier = nullptr;
 inline std::atomic<int> g_block_or{0};
+// one barrier and one vote slot per lane for each warp of the block
+inline std::unique_ptr<std::barrier<>>* g_warp_barriers = nullptr;
+inline unsigned* g_warp_votes = nullptr;
+
+inline int emu_linear_tid() {
+  return static_cast<int>(threadIdx.x + blockDim.x * (threadIdx.y +
+                                                      blockDim.y *
+                                                      threadIdx.z));
+}
+
+// Bit l: lane l's predicate, for the lanes in `mask`.
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+  const int t = emu_linear_tid();
+  const int w = t / 32;
+  const int lanes = static_cast<int>(blockDim.x * blockDim.y * blockDim.z) -
+                    32 * w;
+  g_warp_votes[t] = pred ? 1u : 0u;
+  g_warp_barriers[w]->arrive_and_wait();
+  unsigned r = 0;
+  for (int l = 0; l < 32 && l < lanes; ++l) r |= g_warp_votes[32 * w + l] << l;
+  g_warp_barriers[w]->arrive_and_wait();
+  return r & mask;
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
 
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 
@@ -206,6 +242,14 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F body) {
   const int nthr = static_cast<int>(block.x * block.y * block.z);
   std::barrier<> bar(nthr);
   g_block_barrier = &bar;
+  const int nwarps = (nthr + 31) / 32;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+  for (int w = 0; w < nwarps; ++w)
+    warp_bars.push_back(std::make_unique<std::barrier<>>(
+        nthr - 32 * w < 32 ? nthr - 32 * w : 32));
+  std::vector<unsigned> votes(nthr);
+  g_warp_barriers = warp_bars.data();
+  g_warp_votes = votes.data();
   std::vector<std::thread> threads;
   threads.reserve(nthr);
   for (int t = 0; t < nthr; ++t)

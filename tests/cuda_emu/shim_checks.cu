@@ -1,8 +1,10 @@
-// A check of the emulation itself, compiled into the emulated kernel library
-// by tests/test_torch_kernels_emulated.py: one warp loads a WMMA fragment
+// Checks of the emulation itself, compiled into the emulated kernel library
+// by tests/test_torch_kernels_emulated.py. One warp loads a WMMA fragment
 // from shared memory `offset` bf16 values past a 128-byte aligned tile and
-// multiplies it by a fragment of ones. The card needs a 32-byte aligned
-// fragment pointer; the shim reports any other through cudaGetLastError.
+// multiplies it by a fragment of ones: the card needs a 32-byte aligned
+// fragment pointer, and the shim reports any other through cudaGetLastError.
+// A column-major matrix_a fragment reads its tile transposed. __ballot_sync
+// gathers each lane's predicate into its bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -25,10 +27,57 @@ __global__ void wmma_load_kernel(int offset, float* out) {
   wmma::store_matrix_sync(out, c, 16, wmma::mem_row_major);
 }
 
+// A (16 x 16) read column-major from tile[16 * 16] (A[m][k] = tile[k * 16 +
+// m]) times the identity: out = tile^T.
+__global__ void wmma_col_major_kernel(const float* tile, float* out) {
+  using namespace nvcuda;
+  __shared__ __align__(128) __nv_bfloat16 a_s[16 * 16];
+  __shared__ __align__(128) __nv_bfloat16 eye[16 * 16];
+  for (int i = threadIdx.x; i < 16 * 16; i += 32) {
+    a_s[i] = __float2bfloat16(tile[i]);
+    eye[i] = __float2bfloat16(i / 16 == i % 16 ? 1.f : 0.f);
+  }
+  __syncthreads();
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+  wmma::fill_fragment(c, 0.f);
+  wmma::load_matrix_sync(a, a_s, 16);
+  wmma::load_matrix_sync(b, eye, 16);
+  wmma::mma_sync(c, a, b, c);
+  wmma::store_matrix_sync(out, c, 16, wmma::mem_row_major);
+}
+
+// Each thread: its rank among the lanes of its warp whose predicate holds,
+// and the warp's count of them.
+__global__ void ballot_kernel(const int* pred, int* rank, int* count) {
+  const int t = threadIdx.x;
+  const unsigned lane = t % 32;
+  const unsigned votes = __ballot_sync(0xffffffffu, pred[t]);
+  rank[t] = __popc(votes & ((1u << lane) - 1u));
+  count[t] = __popc(votes);
+}
+
 }  // namespace
 
 // out (16, 16) f32; returns the launch's cudaGetLastError().
 extern "C" int emu_wmma_at(int offset, void* out) {
   wmma_load_kernel<<<1, 32, 0, nullptr>>>(offset, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tile, out (16, 16) f32 (tile's values exact in bf16).
+extern "C" int emu_wmma_col_major(const void* tile, void* out) {
+  wmma_col_major_kernel<<<1, 32, 0, nullptr>>>(
+      static_cast<const float*>(tile), static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pred, rank, count (threads,) int32, threads a multiple of 32 or not.
+extern "C" int emu_ballot(const void* pred, void* rank, void* count,
+                          int threads) {
+  ballot_kernel<<<1, threads, 0, nullptr>>>(static_cast<const int*>(pred),
+                                            static_cast<int*>(rank),
+                                            static_cast<int*>(count));
   return static_cast<int>(cudaGetLastError());
 }

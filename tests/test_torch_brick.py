@@ -162,6 +162,27 @@ def test_brick_conv1(setup):
         atol=ATOL)
 
 
+@pytest.mark.parametrize("affine", [False, True])
+def test_brick_conv1_keeps_empty_cells_zero_near_nan(setup, affine):
+    """NaN in every empty cell of g (halo and padding cells included):
+    `brick_conv1` selects zero there, as `brick_conv3` does, where the
+    reference's product by the mask would carry the NaN (the reference
+    differs here on purpose); the occupied cells keep the finite result."""
+    _, _, _, bg, x, rng = setup
+    w = _t((rng.normal(size=(C, 8)) * 0.1).astype(np.float32))
+    kw = {}
+    if affine:
+        kw = dict(scale=_t(rng.normal(size=(8,)).astype(np.float32)),
+                  offset=_t(rng.normal(size=(8,)).astype(np.float32)))
+    g = be.assemble(_t(x), bg)
+    clean = be.brick_conv1(g, w, bg, **kw)
+    g[~bg.occ] = float("nan")
+    got = be.brick_conv1(g, w, bg, **kw)
+    assert not got.isnan().any()
+    assert not got[~bg.occ].any()
+    assert torch.equal(got, clean)
+
+
 def test_brick_conv3_rejects_an_unsupported_device(setup):
     """Only a CPU tensor reaches the twin: any other device that is not CUDA
     raises (driven through a meta tensor)."""

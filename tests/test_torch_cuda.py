@@ -62,15 +62,32 @@ def _close(got, ref, dtype, tol=None):
     assert err <= tol * scale, (err, scale)
 
 
+def _unaligned(t):
+    """t's values in a contiguous tensor whose base is one element past a
+    16-byte boundary: the kernels' scalar staging path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lv,cin,cout", [(0, 3, 32), (0, 128, 96),
-                                         (1, 96, 64), (2, 384, 256)])
+                                         (1, 96, 64), (2, 384, 256),
+                                         (1, 40, 64), (2, 96, 128),
+                                         (3, 40, 72), (1, 64, -96)])
 def test_conv3_matches_twin(cuda, levels, dtype, lv, cin, cout):
+    """A negative Cout: x and w start one element past a 16-byte boundary
+    (scalar staging)."""
     lvl = levels[lv].to(cuda)
     n = lvl.num_padded
+    unaligned, cout = cout < 0, abs(cout)
     g = torch.Generator().manual_seed(cin)
     x = torch.randn(n, cin, generator=g).to(cuda, dtype)  # noisy padding rows
     w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(cuda, dtype)
+    if unaligned:
+        x, w = _unaligned(x), _unaligned(w)
     kw = dict(scale=torch.rand(cout, generator=g).add(0.5).to(cuda),
               shift=torch.randn(cout, generator=g).to(cuda),
               residual=torch.randn(n, cout, generator=g).to(cuda, dtype),
@@ -123,7 +140,9 @@ def test_segment_sum_matches_twin(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lv,cin,cout", [(0, 3, 32), (0, 128, 96),
-                                         (1, 32, 32), (2, 384, 256)])
+                                         (1, 32, 32), (2, 384, 256),
+                                         (3, 40, 72), (2, 40, 256),
+                                         (2, 136, 32), (1, 96, 128)])
 def test_conv3_bwd_matches_twin(cuda, levels, dtype, lv, cin, cout):
     lvl = levels[lv].to(cuda)
     n = lvl.num_padded

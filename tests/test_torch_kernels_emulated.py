@@ -54,8 +54,9 @@ def emu(tmp_path_factory):
     for name in ("cuda_runtime.h", "cuda_bf16.h", "mma.h",   # in the shim
                  "cuda_pipeline.h"):
         (d / name).write_text("")
-    cmd = [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-           "-include", SHIM, f"-I{d}", "-o", str(d / "emu.so")]
+    flags = [cxx, "-std=c++20", "-O1", "-fPIC", "-pthread", "-include", SHIM,
+             f"-I{d}"]
+    objs = []
     for path in (glob.glob(os.path.join(_build.CSRC, "*.cu*"))
                  + [os.path.join(EMU_DIR, "shim_checks.cu")]):
         src = _LAUNCH.sub(
@@ -66,8 +67,15 @@ def emu(tmp_path_factory):
         out = d / os.path.basename(path)
         out.write_text(src)
         if path.endswith(".cu"):
-            cmd += ["-x", "c++", str(out)]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+            objs.append(str(out) + ".o")
+    # one g++ per source, all started together, then one link
+    procs = [subprocess.Popen(flags + ["-c", "-x", "c++", obj[:-2], "-o", obj],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for obj in objs]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), "".join(logs)
+    res = subprocess.run([cxx, "-shared", "-pthread", "-o", str(d / "emu.so"),
+                          *objs], capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(d / "emu.so"))
     for name, argtypes in _build._SIGNATURES.items():
@@ -75,6 +83,10 @@ def emu(tmp_path_factory):
         getattr(lib, name).restype = ctypes.c_int
     lib.emu_wmma_at.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.emu_wmma_at.restype = ctypes.c_int
+    lib.emu_wmma_col_major.argtypes = [ctypes.c_void_p] * 2
+    lib.emu_wmma_col_major.restype = ctypes.c_int
+    lib.emu_ballot.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.emu_ballot.restype = ctypes.c_int
     return lib
 
 
@@ -95,20 +107,48 @@ def _close(got, ref, dtype):
     assert err <= TOL[dtype] * scale, (err, scale)
 
 
+def _unaligned(t):
+    """t's values in a contiguous tensor whose base is one element past a
+    16-byte boundary: the kernels' scalar staging path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def _dead_tiles(lvl, rows=128):
+    """Row tiles of `rows` rows in which no offset has a neighbour."""
+    n = lvl.num_padded
+    hit = (lvl.nbr_idx != n - 1).any(0)
+    hit = torch.cat([hit, hit.new_zeros(-n % rows)])
+    return int((~hit.view(-1, rows).any(1)).sum())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lv,cin,cout,epi", [
-    (1, 3, 32, "scale_relu"),        # narrow stem, 32-wide tiles
+    (1, 3, 32, "scale_relu"),        # narrow stem: scalar row staging
     (2, 32, 32, "all"),              # + residual
-    (2, 64, 96, "none"),             # Cout not a multiple of 64
-    (3, 40, 64, "all"),              # ragged Cin chunk, 64-wide tiles
-    (4, 128, 256, "scale_relu"),
+    (2, 64, 96, "none"),             # Cout 96 in one bf16 tile
+    (3, 40, 64, "all"),              # ragged Cin chunk, a dead row tile
+    (4, 128, 256, "scale_relu"),     # two 128-wide bf16 tiles, a dead tile
+    (2, 128, 96, "all"),             # the main L0 shape: 4 Cin chunks
+    (2, 96, 128, "unaligned"),       # 128 wide; x and w off 16 bytes
 ])
 def test_emulated_conv3(emu, levels, dtype, lv, cin, cout, epi):
+    """Kernel 1 against its twin. x's padding rows hold noise; level 3's
+    second and level 4's second 128-row tile have no live offset, so they
+    take the epilogue alone; "unaligned": x and w start one element past a
+    16-byte boundary (scalar staging)."""
     lvl = levels[lv]
     n = lvl.num_padded
+    if lv >= 3:
+        assert _dead_tiles(lvl) > 0
     g = torch.Generator().manual_seed(lv * 100 + cin)
     x = torch.randn(n, cin, generator=g).to(dtype)      # noisy padding rows
     w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(dtype)
+    if epi == "unaligned":
+        x, w, epi = _unaligned(x), _unaligned(w), "none"
     sc = sh = res = None
     if epi != "none":
         sc = torch.rand(cout, generator=g) + 0.5
@@ -173,17 +213,32 @@ def test_emulated_segment_sum(emu, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lv,cin,cout", [
-    (2, 3, 32),       # the stem's narrow input: 32 x 32 FMA tiles
-    (3, 32, 64),      # 32 x 64 FMA tiles
-    (3, 96, 32),      # 64 x 32 FMA tiles
-    (4, 40, 72),      # ragged 64 x 64 tiles
+    (2, 3, 32),       # the stem's narrow input: scalar x rows, 32 x 32 tiles
+    (3, 32, 64),      # 32 x 64 tiles
+    (3, 96, 32),      # 64 x 32 f32 / 128 x 32 bf16 tiles
+    (4, 40, 72),      # ragged tiles; ranges with no present pair
+    (1, 32, 32),      # compaction straddles a chunk edge
+    (3, 128, 96),     # the main L0 shape: Cout 96 in one bf16 tile
+    (4, 40, 256),     # two 128-wide Cout tiles
+    (4, 136, 32),     # two 128-wide Cin tiles, the second ragged
 ])
 def test_emulated_conv3_bwd(emu, levels, dtype, lv, cin, cout):
     """Kernel 4's dx entry (the gather-GEMM of gm with flip-transposed
     weights) and kernel 5 (dW), the latter over one row range and over
-    three, whose partials the second pass sums."""
+    three, whose partials the second pass sums; the scratch starts as NaN,
+    so a range with no present pair must still write its zeros. At level 1
+    a block compacts rows [0, 1024) and then [1024, 1280), and an offset's
+    pairs of the first segment end inside a 32-pair chunk that the second
+    segment's pairs complete."""
     lvl = levels[lv]
     n = lvl.num_padded
+    hits = lvl.nbr_idx != n - 1
+    if lv == 1:
+        assert n > 1024 and (hits[:, :1024].sum(1) % 32 != 0).any()
+    if lv == 4:
+        rows = -(-n // 3)
+        rows = -(-rows // 32) * 32
+        assert not hits[:, rows:].any()   # ranges 2 and 3 of 3
     g = torch.Generator().manual_seed(lv * 100 + cin)
     bf = int(dtype == torch.bfloat16)
     x = torch.randn(n, cin, generator=g).to(dtype)      # noisy padding rows
@@ -390,3 +445,26 @@ def test_emulation_rejects_misaligned_wmma_pointers(emu, offset, aligned):
         assert code == 0 and torch.equal(out, torch.full((16, 16), 16.0))
     else:
         assert code == 716
+
+
+@pytest.mark.parametrize("construct", ["col_major", "ballot"])
+def test_emulation_of_col_major_fragments_and_ballots(emu, construct):
+    """Two constructs of the shim that kernel 5 uses. "col_major": a
+    column-major matrix_a fragment reads its tile transposed. "ballot":
+    __ballot_sync puts each lane's predicate in its bit (ranks and counts
+    per warp, over a block of two and a half warps)."""
+    if construct == "col_major":
+        tile = torch.arange(256, dtype=torch.float32).view(16, 16)
+        out = torch.full((16, 16), float("nan"))
+        assert emu.emu_wmma_col_major(_p(tile), _p(out)) == 0
+        assert torch.equal(out, tile.t())
+        return
+    threads = 80
+    pred = (torch.arange(threads) * 7 % 5 < 2).int()
+    rank = torch.full((threads,), -1, dtype=torch.int32)
+    count = torch.full((threads,), -1, dtype=torch.int32)
+    assert emu.emu_ballot(_p(pred), _p(rank), _p(count), threads) == 0
+    for w0 in range(0, threads, 32):
+        p = pred[w0:w0 + 32]
+        assert torch.equal(rank[w0:w0 + 32], (torch.cumsum(p, 0) - p).int())
+        assert (count[w0:w0 + 32] == int(p.sum())).all()

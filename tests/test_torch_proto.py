@@ -124,8 +124,20 @@ def test_win_graph_spill_plan_and_asserts(level):
                         spill_plan=(8, 8))
     with pytest.raises(AssertionError):      # own window narrower than a tile
         build_win_graph(nbr, n_pad, w_sub=128, w_union=512)
-    with pytest.raises(AssertionError):      # rows no multiple of G x tile
+    with pytest.raises(ValueError, match="power of two"):   # no G x tile
         build_win_graph(nbr, n_pad, w_sub=256, w_union=2048, group=3)
+
+
+@pytest.mark.parametrize("w_union", [1024, 2048])
+def test_win_graph_rejects_a_group_that_is_no_power_of_two(level, w_union):
+    """Group 6 is halved to 3 where its rows outgrow the union window (1024)
+    and kept where they fit (2048); 3 or 6 tiles of 256 rows divide no level
+    padded to a multiple of 2048 rows, where the reference's divisibility
+    assert fires. The port raises a ValueError naming the group first."""
+    _, n_pad, nbr = level
+    assert n_pad % (3 * 256) != 0
+    with pytest.raises(ValueError, match="group 6 is not a power of two"):
+        build_win_graph(nbr, n_pad, w_sub=256, w_union=w_union, group=6)
 
 
 @pytest.fixture(scope="module")

@@ -49,8 +49,6 @@
 // emulation of the tests does not compile: later work.
 #pragma once
 
-#include <cuda_pipeline.h>
-
 #include "gather_gemm.cuh"
 
 namespace us3d {
@@ -79,14 +77,6 @@ __device__ __forceinline__ int k3_delta(int k) {
   return (k / 9 - 1) * 100 + ((k / 3) % 3 - 1) * 10 + (k % 3 - 1);
 }
 
-// Copy 16 bytes global -> shared when `in` holds, else store 16 zero bytes.
-__device__ __forceinline__ void copy16(void* dst, const void* src, bool in) {
-  if (in)
-    __pipeline_memcpy_async(dst, src, 16);
-  else
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-}
-
 // Stage rows [u0, u1) x channels [c0, c0 + K) of the tile's union (brick rows
 // from `rows0`) into A (leading dimension LD); zero past Cin. `vec`: 16-byte
 // asynchronous copies (Cin a multiple of 16 / sizeof(T), base aligned),
@@ -108,35 +98,6 @@ __device__ __forceinline__ void stage_union(T* A, const T* __restrict__ g,
       const int c = c0 + e % K;
       A[u * LD + c - c0] =
           c < cin ? g[(rows0 + u) * cin + c] : from_f32<T>(0.f);
-    }
-  }
-}
-
-// Stage w[k, c0 : c0 + K, col0 : col0 + NC] into B (leading dimension LD);
-// zero past Cin and Cout. `vec` as for stage_union, on Cout.
-template <typename T, int K, int NC, int LD, int NT>
-__device__ __forceinline__ void stage_weights(T* B, const T* __restrict__ w,
-                                              int k, int c0, int col0,
-                                              int cin, int cout, bool vec) {
-  constexpr int kV = 16 / sizeof(T);
-  if (vec) {
-    for (int e = threadIdx.x; e < K * (NC / kV); e += NT) {
-      const int kk = e / (NC / kV);
-      const int n = (e % (NC / kV)) * kV;
-      const int c = c0 + kk;
-      const int co = col0 + n;
-      copy16(B + kk * LD + n, w + ((size_t)k * cin + c) * cout + co,
-             c < cin && co < cout);
-    }
-  } else {
-    for (int e = threadIdx.x; e < K * NC; e += NT) {
-      const int kk = e / NC;
-      const int n = e % NC;
-      const int c = c0 + kk;
-      const int co = col0 + n;
-      B[kk * LD + n] = (c < cin && co < cout)
-                           ? w[((size_t)k * cin + c) * cout + co]
-                           : from_f32<T>(0.f);
     }
   }
 }

@@ -22,202 +22,332 @@
 // dx: the shared gather-GEMM body of kernel 1 (gather_gemm.cuh), launched
 // under this file's own entry point.
 //
-// dW: bound by the row gather, like the forward. dW[k] is a GEMM whose
-// reduction runs over rows: (Cin x rows) @ (rows x Cout). One 256-thread
-// block owns one (offset k, 64-wide Cin tile, 64-wide Cout tile) and a fixed
-// contiguous range of rows; it walks the range in 32-row chunks, stages the
-// chunk's neighbour indices, gathers the x rows and reads the matching gm
-// rows into shared memory (a chunk none of whose rows has the neighbour is
-// skipped) and accumulates in f32: FMA on the CUDA cores for f32 (a 4x4 or
-// smaller register tile per thread), WMMA 16x16x16 with f32 accumulation for
-// bf16. Each block writes its partial (Cin tile x Cout tile) into a
-// per-range slice of an f32 scratch; a second pass sums the slices in range
-// order. No float atomics: two runs are bitwise equal.
+// dW: a GEMM whose reduction runs over the pairs (x row nbr[k, i], gm row i)
+// of one offset: (Cin x pairs) @ (pairs x Cout). What bounds it on the H100
+// is the row staging: only ~30% of the rows of an off-centre offset have the
+// neighbour at level 0, and each pair moves a Cin-wide and a Cout-wide row.
+// A 256-thread block owns one offset k, one fixed row range (dw_splits in
+// ops/conv3.py, a function of the shapes), one Cin tile of up to 128 and
+// all of Cout up to 128 (wider takes 128-wide tiles), so each pair's rows are
+// read once per block. The block compacts its range in segments of 1024 rows
+// inside the kernel, with no host table and no host sync: every thread reads
+// four entries of nbr[k], a warp ballot and a block prefix append the
+// present (x row, gm row) pairs, in row order, to a ring of pairs in shared
+// memory. The products run on full 32-pair chunks of that list (the last
+// one zero-padded); a chunk's rows arrive as they are, x rows as Xs[pair][c]
+// and gm rows as Gs[pair][d], by 16-byte cp.async (scalar loads where a
+// width or base is not 16-byte aligned: the stem's Cin 3), double-buffered
+// with one barrier per chunk. bf16: dW_tile += Xs^T @ Gs on the tensor cores
+// (WMMA, Xs read as a column-major matrix_a, f32 accumulation); f32: FMA on
+// the CUDA cores, a (TC/16) x (TD/16) register tile per thread, no TF32.
+// Each block writes its partial tile into a per-range slice of an f32
+// scratch; a second pass sums the slices in range order. The sums' order
+// follows the shapes and the neighbour map alone, no atomics: two runs are
+// bitwise equal.
 #include "gather_gemm.cuh"
 
 namespace {
 
-using us3d::kThreads;
-using us3d::to_f32;
+using namespace us3d;
 
-constexpr int kRows = 32;   // rows reduced per chunk
+constexpr int kPairs = 32;                    // pairs per chunk
+constexpr int kRounds = 4;                    // nbr entries per thread
+constexpr int kSegRows = kRounds * kThreads;  // rows compacted at a time
+constexpr int kWarps = kThreads / 32;
+// pair ring slots: a segment's pairs plus the unfinished chunk before them
+constexpr int kRing = 2048;
+static_assert(kRing >= kSegRows + kPairs && (kRing & (kRing - 1)) == 0,
+              "pair ring");
 
-// Block-uniform: stage the chunk's neighbour rows for offset k, return
-// whether any row of the chunk has the neighbour.
-__device__ __forceinline__ int stage_rows(const int* __restrict__ nbr,
-                                          int* rows, int k, int r0, int r_end,
-                                          int n) {
-  int any = 0;
+// Append the present pairs of nbr_k over rows [r0, r1) (at most kSegRows)
+// to the ring at `tail`, in row order; returns the new tail. Block-uniform;
+// ends on a barrier, after which the new pairs are visible.
+__device__ __forceinline__ int compact_segment(const int* __restrict__ nbr_k,
+                                               int r0, int r1, int sentinel,
+                                               int tail, int* psrc,
+                                               int* prow, int* wcount) {
   const int tid = threadIdx.x;
-  if (tid < kRows) {
-    const int i = r0 + tid;
-    const int src = (i < r_end) ? nbr[(size_t)k * n + i] : n - 1;
-    rows[tid] = src;
-    any = src != n - 1;
-  }
-  return __syncthreads_or(any);
-}
-
-// f32 on the CUDA cores: TC x TD output tile, 16 x 16 threads, each owning a
-// (TC/16) x (TD/16) register tile.
-template <typename T, int TC, int TD>
-__global__ void __launch_bounds__(kThreads)
-dw_fma_kernel(const T* __restrict__ x, const T* __restrict__ gm,
-              const int* __restrict__ nbr, float* __restrict__ part, int n,
-              int cin, int cout, int rows_per_split, int splits) {
-  constexpr int RC = TC / 16;
-  constexpr int RD = TD / 16;
-  __shared__ float Xs[kRows][TC];
-  __shared__ float Gs[kRows][TD];
-  __shared__ int rows[kRows];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int d0 = blockIdx.x * TD;
-  const int c0 = blockIdx.y * TC;
-  const int k = blockIdx.z / splits;
-  const int s = blockIdx.z % splits;
-  const int r_begin = s * rows_per_split;
-  const int r_end = n < r_begin + rows_per_split ? n : r_begin + rows_per_split;
-  const int sentinel = n - 1;
-
-  float acc[RC][RD];
-#pragma unroll
-  for (int i = 0; i < RC; ++i)
-#pragma unroll
-    for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kRows) {
-    if (!stage_rows(nbr, rows, k, r0, r_end, n)) continue;
-    for (int e = tid; e < kRows * TC; e += kThreads) {
-      const int r = e / TC;
-      const int c = e % TC;
-      const int src = rows[r];
-      Xs[r][c] = (src != sentinel && c0 + c < cin)
-                     ? to_f32(x[(size_t)src * cin + c0 + c]) : 0.f;
-    }
-    for (int e = tid; e < kRows * TD; e += kThreads) {
-      const int r = e / TD;
-      const int d = e % TD;
-      Gs[r][d] = (rows[r] != sentinel && d0 + d < cout)
-                     ? to_f32(gm[(size_t)(r0 + r) * cout + d0 + d]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kRows; ++r) {
-      float a[RC], b[RD];
-#pragma unroll
-      for (int i = 0; i < RC; ++i) a[i] = Xs[r][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < RD; ++j) b[j] = Gs[r][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RC; ++i)
-#pragma unroll
-        for (int j = 0; j < RD; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = part + ((size_t)s * 27 + k) * cin * cout;
-#pragma unroll
-  for (int i = 0; i < RC; ++i) {
-    const int c = c0 + ty + 16 * i;
-    if (c >= cin) continue;
-#pragma unroll
-    for (int j = 0; j < RD; ++j) {
-      const int d = d0 + tx + 16 * j;
-      if (d < cout) out[(size_t)c * cout + d] = acc[i][j];
-    }
-  }
-}
-
-// bf16 on the tensor cores: a 64 x 64 output tile, each of the 8 warps owning
-// 16 Cin rows x 32 Cout columns (1 x 2 fragments). The gathered x chunk is
-// stored transposed (Cin x rows), so both operands load row-major.
-constexpr int kTcC = 64, kTcD = 64;
-constexpr int kLdA = kRows + 8;   // bf16 leading dims: multiples of 8 and
-constexpr int kLdB = kTcD + 8;    // 32-byte aligned fragment rows
-constexpr int kLdC = kTcD + 4;    // f32 leading dim: a multiple of 4
-
-template <typename T>   // T = __nv_bfloat16 (a template: one copy per .so)
-__global__ void __launch_bounds__(kThreads)
-dw_tc_kernel(const T* __restrict__ x, const T* __restrict__ gm,
-             const int* __restrict__ nbr, float* __restrict__ part, int n,
-             int cin, int cout, int rows_per_split, int splits) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 only");
-  using namespace nvcuda;
-  constexpr int kABytes = kTcC * kLdA * 2;
-  constexpr int kBBytes = kRows * kLdB * 2;
-  constexpr int kCBytes = kTcC * kLdC * 4;
-  constexpr int kBytes = kABytes + kBBytes > kCBytes ? kABytes + kBBytes
-                                                     : kCBytes;
-  // the f32 accumulator tile reuses the A/B staging after the main loop
-  __shared__ __align__(128) unsigned char smem[kBytes];
-  __shared__ int rows[kRows];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + kABytes);
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
+  const int lane = tid % 32;
   const int warp = tid / 32;
-  const int wc = (warp / 2) * 16;   // warp's Cin offset in the tile
-  const int wd = (warp % 2) * 32;   // warp's Cout offset
-  const int d0 = blockIdx.x * kTcD;
-  const int c0 = blockIdx.y * kTcC;
+  int src[kRounds];
+  int below[kRounds];   // present lanes before this one in its warp
+#pragma unroll
+  for (int q = 0; q < kRounds; ++q) {
+    const int i = r0 + q * kThreads + tid;
+    src[q] = i < r1 ? nbr_k[i] : sentinel;
+    const unsigned votes = __ballot_sync(0xffffffffu, src[q] != sentinel);
+    if (lane == 0) wcount[q * kWarps + warp] = __popc(votes);
+    below[q] = __popc(votes & ((1u << lane) - 1u));
+  }
+  __syncthreads();
+  int base = tail;
+#pragma unroll
+  for (int q = 0; q < kRounds; ++q)
+    for (int w = 0; w < kWarps; ++w) {
+      if (w == warp && src[q] != sentinel) {
+        const int slot = (base + below[q]) & (kRing - 1);
+        psrc[slot] = src[q];
+        prow[slot] = r0 + q * kThreads + tid;
+      }
+      base += wcount[q * kWarps + w];
+    }
+  __syncthreads();
+  return base;
+}
+
+// Stage the W-wide slice [col0, col0 + W) of the rows rows[p] (pairs p0 + p
+// below `tail`; zero rows past it) into S (leading dimension LD), zero past
+// `width`. `vec`: 16-byte asynchronous copies.
+template <typename T, int W, int LD>
+__device__ __forceinline__ void stage_pair_rows(T* S,
+                                                const T* __restrict__ src,
+                                                const int* rows, int p0,
+                                                int tail, int col0, int width,
+                                                bool vec) {
+  constexpr int kV = 16 / sizeof(T);
+  if (vec) {
+    for (int e = threadIdx.x; e < kPairs * (W / kV); e += kThreads) {
+      const int p = e / (W / kV);
+      const int c = kV * (e % (W / kV));
+      const bool in = p0 + p < tail;
+      const int r = in ? rows[(p0 + p) & (kRing - 1)] : 0;
+      copy16(S + p * LD + c, src + (size_t)r * width + col0 + c,
+             in && col0 + c < width);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kPairs * W; e += kThreads) {
+      const int p = e / W;
+      const int c = e % W;
+      const bool in = p0 + p < tail && col0 + c < width;
+      S[p * LD + c] =
+          in ? src[(size_t)rows[(p0 + p) & (kRing - 1)] * width + col0 + c]
+             : from_f32<T>(0.f);
+    }
+  }
+}
+
+// bf16 on the tensor cores: a TCI x TCO tile of WMMA accumulators, warps WI
+// over Cin x WO over Cout, each FI x FO fragments (warps past WI x WO, at
+// 32-wide Cin tiles, only stage).
+template <int TCI, int TCO>
+struct DwTc {
+  using T = __nv_bfloat16;
+  static constexpr int kTCI = TCI, kTCO = TCO;
+  static constexpr int kWI = TCI / 16 >= 4 ? 4 : TCI / 16;
+  static constexpr int kWO =
+      (TCO / 16) % (kWarps / kWI) == 0 ? kWarps / kWI : 2;
+  static constexpr int kFI = TCI / 16 / kWI;
+  static constexpr int kFO = TCO / 16 / kWO;
+  static constexpr int kLdX = TCI + 8;   // 32-byte aligned fragment rows
+  static constexpr int kLdG = TCO + 8;
+  static constexpr int kLdC = TCO + 4;
+  static constexpr int kXBytes = kPairs * kLdX * 2;
+  static constexpr int kBufBytes = kXBytes + kPairs * kLdG * 2;
+  static constexpr int kCBytes = TCI * kLdC * 4;
+  static constexpr int kSmemBytes =
+      2 * kBufBytes > kCBytes ? 2 * kBufBytes : kCBytes;
+  static_assert(kFI * kWI * 16 == TCI && kFO * kWO * 16 == TCO,
+                "whole fragments per warp");
+  static_assert(kXBytes % 32 == 0 && kBufBytes % 128 == 0, "aligned");
+
+  struct Acc {
+    AccFragment f[kFI][kFO];
+  };
+
+  static __device__ __forceinline__ bool active() {
+    return threadIdx.x / 32 < kWI * kWO;
+  }
+  static __device__ __forceinline__ int ci0() {
+    return (threadIdx.x / 32 / kWO) * kFI * 16;
+  }
+  static __device__ __forceinline__ int co0() {
+    return (threadIdx.x / 32 % kWO) * kFO * 16;
+  }
+
+  static __device__ __forceinline__ void init(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < kFI; ++i)
+#pragma unroll
+      for (int j = 0; j < kFO; ++j)
+        nvcuda::wmma::fill_fragment(acc.f[i][j], 0.f);
+  }
+
+  static __device__ __forceinline__ void step(Acc& acc, const T* Xs,
+                                              const T* Gs) {
+    using namespace nvcuda;
+    if (!active()) return;
+    // the 8-fragment tile (128 x 128) rolls this loop, so that it keeps
+    // its values in 128 registers (two blocks on an SM) without a spill
+#pragma unroll (kFI * kFO >= 8 ? 1 : kPairs / 16)
+    for (int ks = 0; ks < kPairs; ks += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> a[kFI];
+#pragma unroll
+      for (int i = 0; i < kFI; ++i)
+        wmma::load_matrix_sync(a[i], Xs + ks * kLdX + ci0() + 16 * i, kLdX);
+#pragma unroll
+      for (int j = 0; j < kFO; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b;
+        wmma::load_matrix_sync(b, Gs + ks * kLdG + co0() + 16 * j, kLdG);
+#pragma unroll
+        for (int i = 0; i < kFI; ++i)
+          wmma::mma_sync(acc.f[i][j], a[i], b, acc.f[i][j]);
+      }
+    }
+  }
+
+  // After the main loop's last barrier: fragments -> the f32 tile over the
+  // chunk buffers -> out (rows c0.., columns d0.., clipped).
+  static __device__ __forceinline__ void store(Acc& acc, unsigned char* smem,
+                                               float* __restrict__ out,
+                                               int c0, int d0, int cin,
+                                               int cout) {
+    float* Cs = reinterpret_cast<float*>(smem);
+    if (active())
+#pragma unroll
+      for (int i = 0; i < kFI; ++i)
+#pragma unroll
+        for (int j = 0; j < kFO; ++j)
+          nvcuda::wmma::store_matrix_sync(
+              Cs + (ci0() + 16 * i) * kLdC + co0() + 16 * j, acc.f[i][j],
+              kLdC, nvcuda::wmma::mem_row_major);
+    __syncthreads();
+    for (int e = threadIdx.x; e < TCI * TCO; e += kThreads) {
+      const int c = e / TCO;
+      const int d = e % TCO;
+      if (c0 + c < cin && d0 + d < cout)
+        out[(size_t)(c0 + c) * cout + d0 + d] = Cs[c * kLdC + d];
+    }
+  }
+};
+
+// f32 on the CUDA cores: a TC x TD tile, 16 x 16 threads, thread (tx, ty)
+// owning Cin rows ty + 16 i and Cout columns tx + 16 j.
+template <int TC, int TD>
+struct DwFma {
+  using T = float;
+  static constexpr int kTCI = TC, kTCO = TD;
+  static constexpr int kRC = TC / 16, kRD = TD / 16;
+  static constexpr int kLdX = TC + 4;   // 16-byte rows
+  static constexpr int kLdG = TD + 4;
+  static constexpr int kXBytes = kPairs * kLdX * 4;
+  static constexpr int kBufBytes = kXBytes + kPairs * kLdG * 4;
+  static constexpr int kSmemBytes = 2 * kBufBytes;
+  static_assert(kXBytes % 16 == 0 && kBufBytes % 128 == 0, "aligned");
+
+  struct Acc {
+    float v[kRC][kRD];
+  };
+
+  static __device__ __forceinline__ void init(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < kRC; ++i)
+#pragma unroll
+      for (int j = 0; j < kRD; ++j) acc.v[i][j] = 0.f;
+  }
+
+  static __device__ __forceinline__ void step(Acc& acc, const T* Xs,
+                                              const T* Gs) {
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
+#pragma unroll 4
+    for (int p = 0; p < kPairs; ++p) {
+      float a[kRC], b[kRD];
+#pragma unroll
+      for (int i = 0; i < kRC; ++i) a[i] = Xs[p * kLdX + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < kRD; ++j) b[j] = Gs[p * kLdG + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < kRC; ++i)
+#pragma unroll
+        for (int j = 0; j < kRD; ++j)
+          acc.v[i][j] = fmaf(a[i], b[j], acc.v[i][j]);
+    }
+  }
+
+  static __device__ __forceinline__ void store(Acc& acc, unsigned char*,
+                                               float* __restrict__ out,
+                                               int c0, int d0, int cin,
+                                               int cout) {
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
+#pragma unroll
+    for (int i = 0; i < kRC; ++i) {
+      const int c = c0 + ty + 16 * i;
+      if (c >= cin) continue;
+#pragma unroll
+      for (int j = 0; j < kRD; ++j) {
+        const int d = d0 + tx + 16 * j;
+        if (d < cout) out[(size_t)c * cout + d] = acc.v[i][j];
+      }
+    }
+  }
+};
+
+// One block per (Cout tile, Cin tile, offset x row range): blockIdx.z = k *
+// splits + s. Tile::kSmemBytes of dynamic shared memory.
+template <class Tile>
+__global__ void __launch_bounds__(kThreads)
+dw_pairs_kernel(const typename Tile::T* __restrict__ x,
+                const typename Tile::T* __restrict__ gm,
+                const int* __restrict__ nbr, float* __restrict__ part, int n,
+                int cin, int cout, int rows_per_split, int splits) {
+  using T = typename Tile::T;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int psrc[kRing];   // x row of each pair
+  __shared__ int prow[kRing];   // its gm row
+  __shared__ int wcount[kRounds * kWarps];
+
+  const int d0 = blockIdx.x * Tile::kTCO;
+  const int c0 = blockIdx.y * Tile::kTCI;
   const int k = blockIdx.z / splits;
   const int s = blockIdx.z % splits;
   const int r_begin = s * rows_per_split;
   const int r_end = n < r_begin + rows_per_split ? n : r_begin + rows_per_split;
-  const int sentinel = n - 1;
-  const T zero = __float2bfloat16(0.f);
+  const int* nbr_k = nbr + (size_t)k * n;
+  constexpr int kV = 16 / sizeof(T);
+  const bool vec_x = cin % kV == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_g =
+      cout % kV == 0 && reinterpret_cast<uintptr_t>(gm) % 16 == 0;
+  auto xs = [&](int j) {
+    return reinterpret_cast<T*>(smem + (j & 1) * Tile::kBufBytes);
+  };
+  auto gs = [&](int j) {
+    return reinterpret_cast<T*>(smem + (j & 1) * Tile::kBufBytes +
+                                Tile::kXBytes);
+  };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kRows) {
-    if (!stage_rows(nbr, rows, k, r0, r_end, n)) continue;
-    for (int e = tid; e < kRows * kTcC; e += kThreads) {
-      const int r = e / kTcC;
-      const int c = e % kTcC;
-      const int src = rows[r];
-      As[c * kLdA + r] = (src != sentinel && c0 + c < cin)
-                             ? x[(size_t)src * cin + c0 + c] : zero;
+  typename Tile::Acc acc;
+  Tile::init(acc);
+  int tail = 0;        // pairs appended so far (block-uniform)
+  int next = r_begin;  // first row not yet compacted
+  // step j stages chunk j + 1 and multiplies chunk j (one cp.async group a
+  // step, committed also when empty)
+  for (int j = -1;; ++j) {
+    while (tail < kPairs * (j + 2) && next < r_end) {   // chunk j + 1's pairs
+      const int r1 = next + kSegRows < r_end ? next + kSegRows : r_end;
+      tail = compact_segment(nbr_k, next, r1, n - 1, tail, psrc, prow,
+                             wcount);
+      next = r1;
     }
-    for (int e = tid; e < kRows * kTcD; e += kThreads) {
-      const int r = e / kTcD;
-      const int d = e % kTcD;
-      Bs[r * kLdB + d] = (rows[r] != sentinel && d0 + d < cout)
-                             ? gm[(size_t)(r0 + r) * cout + d0 + d] : zero;
+    if (j >= 0) {
+      __pipeline_wait_prior(0);
+      __syncthreads();   // chunk j landed; chunk j - 1's buffers are free
     }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kRows; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[2];
-      wmma::load_matrix_sync(a, As + wc * kLdA + ks, kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + ks * kLdB + wd + 16 * j, kLdB);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[j], a, b[j], acc[j]);
+    const int p1 = kPairs * (j + 1);
+    if (p1 < tail) {
+      stage_pair_rows<T, Tile::kTCI, Tile::kLdX>(xs(j + 1), x, psrc, p1,
+                                                 tail, c0, cin, vec_x);
+      stage_pair_rows<T, Tile::kTCO, Tile::kLdG>(gs(j + 1), gm, prow, p1,
+                                                 tail, d0, cout, vec_g);
     }
-    __syncthreads();
+    __pipeline_commit();
+    if (j >= 0) Tile::step(acc, xs(j), gs(j));
+    if (p1 >= tail) break;   // chunk j + 1 is empty: j was the last
   }
-
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(Cs + wc * kLdC + wd + 16 * j, acc[j], kLdC,
-                            wmma::mem_row_major);
-  __syncthreads();
-  float* out = part + ((size_t)s * 27 + k) * cin * cout;
-  for (int e = tid; e < kTcC * kTcD; e += kThreads) {
-    const int c = c0 + e / kTcD;
-    const int d = d0 + e % kTcD;
-    if (c < cin && d < cout)
-      out[(size_t)c * cout + d] = Cs[(e / kTcD) * kLdC + e % kTcD];
-  }
+  __pipeline_wait_prior(0);
+  __syncthreads();   // every product read; the buffers are free
+  Tile::store(acc, smem, part + ((size_t)s * 27 + k) * cin * cout, c0, d0,
+              cin, cout);
 }
 
 // Second pass: dw[e] = sum over row ranges of part[s, e], in range order.
@@ -231,15 +361,40 @@ __global__ void dw_reduce_kernel(const float* __restrict__ part,
   dw[e] = acc;
 }
 
-template <typename T, int TC, int TD>
-void launch_fma(const void* x, const void* gm, const void* nbr, float* part,
-                int n, int cin, int cout, int rows_per_split, int splits,
-                cudaStream_t st) {
-  dim3 grid((cout + TD - 1) / TD, (cin + TC - 1) / TC, 27 * splits);
-  dw_fma_kernel<T, TC, TD><<<grid, kThreads, 0, st>>>(
+template <class Tile>
+int launch_dw(const void* x, const void* gm, const void* nbr, float* part,
+              int n, int cin, int cout, int rows_per_split, int splits,
+              cudaStream_t st) {
+  using T = typename Tile::T;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dw_pairs_kernel<Tile>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile::kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((cout + Tile::kTCO - 1) / Tile::kTCO,
+            (cin + Tile::kTCI - 1) / Tile::kTCI, 27 * splits);
+  dw_pairs_kernel<Tile><<<grid, kThreads, Tile::kSmemBytes, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(gm),
       static_cast<const int*>(nbr), part, n, cin, cout, rows_per_split,
       splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 tile of Cin tile TCI for the Cout: 32, 64, 96 or 128 wide.
+template <int TCI>
+int launch_dw_tc(const void* x, const void* gm, const void* nbr, float* part,
+                 int n, int cin, int cout, int rows_per_split, int splits,
+                 cudaStream_t st) {
+  if (cout <= 32)
+    return launch_dw<DwTc<TCI, 32>>(x, gm, nbr, part, n, cin, cout,
+                                    rows_per_split, splits, st);
+  if (cout <= 64)
+    return launch_dw<DwTc<TCI, 64>>(x, gm, nbr, part, n, cin, cout,
+                                    rows_per_split, splits, st);
+  if (cout <= 96)
+    return launch_dw<DwTc<TCI, 96>>(x, gm, nbr, part, n, cin, cout,
+                                    rows_per_split, splits, st);
+  return launch_dw<DwTc<TCI, 128>>(x, gm, nbr, part, n, cin, cout,
+                                   rows_per_split, splits, st);
 }
 
 }  // namespace
@@ -267,27 +422,30 @@ extern "C" int conv3_dw(const void* x, const void* gm, const void* nbr,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(splits > 1 ? part : dw);
+  int code;
   if (is_bf16) {
-    dim3 grid((cout + kTcD - 1) / kTcD, (cin + kTcC - 1) / kTcC,
-              27 * splits);
-    dw_tc_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(gm), static_cast<const int*>(nbr),
-        out, n, cin, cout, rows_per_split, splits);
+    if (cin <= 32)
+      code = launch_dw_tc<32>(x, gm, nbr, out, n, cin, cout, rows_per_split,
+                              splits, st);
+    else if (cin <= 64)
+      code = launch_dw_tc<64>(x, gm, nbr, out, n, cin, cout, rows_per_split,
+                              splits, st);
+    else
+      code = launch_dw_tc<128>(x, gm, nbr, out, n, cin, cout, rows_per_split,
+                               splits, st);
   } else if (cin <= 32 && cout <= 32) {
-    launch_fma<float, 32, 32>(x, gm, nbr, out, n, cin, cout, rows_per_split,
-                              splits, st);
+    code = launch_dw<DwFma<32, 32>>(x, gm, nbr, out, n, cin, cout,
+                                    rows_per_split, splits, st);
   } else if (cin <= 32) {
-    launch_fma<float, 32, 64>(x, gm, nbr, out, n, cin, cout, rows_per_split,
-                              splits, st);
+    code = launch_dw<DwFma<32, 64>>(x, gm, nbr, out, n, cin, cout,
+                                    rows_per_split, splits, st);
   } else if (cout <= 32) {
-    launch_fma<float, 64, 32>(x, gm, nbr, out, n, cin, cout, rows_per_split,
-                              splits, st);
+    code = launch_dw<DwFma<64, 32>>(x, gm, nbr, out, n, cin, cout,
+                                    rows_per_split, splits, st);
   } else {
-    launch_fma<float, 64, 64>(x, gm, nbr, out, n, cin, cout, rows_per_split,
-                              splits, st);
+    code = launch_dw<DwFma<64, 64>>(x, gm, nbr, out, n, cin, cout,
+                                    rows_per_split, splits, st);
   }
-  int code = static_cast<int>(cudaGetLastError());
   if (code != 0 || splits == 1) return code;
   const size_t m = (size_t)27 * cin * cout;
   dw_reduce_kernel<<<(unsigned)((m + 255) / 256), 256, 0, st>>>(

@@ -1,5 +1,5 @@
-// Shared gather-GEMM body of kernel 1 (conv3.cu) and the weighted case of
-// kernel 2 (k_apply.cu):
+// Shared gather-GEMM body of kernel 1 (conv3.cu), the dx of kernel 4
+// (conv3_bwd.cu) and the weighted case of kernel 2 (k_apply.cu):
 //
 //   out[i, :] = valid[i] * epi( sum_{k<K} x[idx[k, i], :] @ w[k] )
 //
@@ -12,22 +12,38 @@
 // Bound on the H100: the gather. Each output row reads ~8.7 valid neighbour
 // rows x Cin x itemsize at level 0 of the bench scene (of 27 offsets), from
 // anywhere in the level, while the FLOPs per gathered byte are small
-// (2 x Cout / itemsize). This simple design: one 256-thread block per tile of
-// TM output rows x TN output channels loops over the K offsets and over
-// 32-channel Cin chunks; it stages the tile's neighbour indices in shared
-// memory, skips an offset when no row of the tile has that neighbour,
-// gathers the rows (coalesced along channels, zero for missing rows) and the
-// weight slice into shared memory, and multiplies: f32 on the CUDA cores
-// with a 4x4 register tile per thread, bf16 on the tensor cores through
-// WMMA fragments with f32 accumulation. Every output element is summed in a
-// fixed order: no atomics, bitwise deterministic. wgmma and cp.async/TMA
-// staging are later work; valid-pair compaction is kernel 6 (csr_conv.cu).
-// The weight staging, the per-chunk products and the epilogue are device
-// functions that kernel 6 shares; kernels 7 and 8 (brick_tile.cuh) share the
-// epilogue and the accumulator fragment.
+// (2 x Cout / itemsize); what the card spends is the staging of those rows
+// into shared memory and the fragment loads, not HBM bytes or MMAs.
+//
+// bf16 (gather_gemm_ring_kernel): one 256-thread block owns 128 output rows
+// x all of Cout up to 128 (wider Cout takes 128-wide column tiles), so each
+// gathered row feeds every output column of its block once. The block
+// stages the tile's K x 128 neighbour indices once, with the list of live
+// offsets (those some row of the tile has) and, per live offset, which of
+// the four 32-row groups have it; the pipeline walks only the live (offset,
+// 32-channel chunk) steps. A step's rows arrive by 16-byte cp.async
+// (__pipeline_memcpy_async), a missing row as an explicit zero store, with
+// the weight slice beside them, into a 3-stage ring with one barrier per
+// step, so the next steps' copies fly while this one multiplies (WMMA
+// 16x16x16, f32 accumulation; a warp owns 32 rows x half of the columns and
+// skips a step where its rows have no neighbour). Rows or weights whose width
+// or base is not 16-byte aligned (the stem's Cin 3) take scalar loads in the
+// same kernel. The accumulators go through shared memory (over the ring) to
+// the epilogue, so stores stay coalesced along channels.
+//
+// f32 (gather_gemm_kernel): the same skip of absent offsets, scalar staging
+// and a 4x4 register tile per thread on the CUDA cores, no TF32.
+//
+// Every output element is summed in a fixed order (offsets in order, Cin
+// chunks in order): no atomics, two runs are bitwise equal. The weight
+// staging, the per-chunk products and the epilogue are device functions
+// that kernel 6 (csr_conv.cu) and kernel 9 (win_decompose.cu) share;
+// kernels 7 and 8 (brick_tile.cuh) share the epilogue, the accumulator
+// fragment and the 16-byte staging helpers.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -188,11 +204,9 @@ gather_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// bf16 variant on the tensor cores (WMMA 16x16x16, f32 accumulation): the
-// same gather and skip, one 256-thread block per 128 rows x 64 channels,
-// each of the 8 warps owning a 32 x 32 sub-tile (2 x 2 fragments). The
-// accumulators go through shared memory for the epilogue, so stores stay
-// coalesced along channels. Still deterministic: the MMA order is fixed.
+// The 128 x 64 tensor-core tile of kernels 6 and 9 (csr_conv.cu,
+// win_decompose.cu): each of the 8 warps owns a 32 x 32 sub-tile (2 x 2
+// fragments) and the accumulators go through shared memory to the epilogue.
 constexpr int kTcM = 128, kTcN = 64, kTcK = 32;
 constexpr int kTcLdA = kTcK + 8;   // bf16 leading dims: multiples of 8 and
 constexpr int kTcLdB = kTcN + 8;   // 32-byte aligned fragment rows
@@ -268,74 +282,262 @@ __device__ __forceinline__ void store_acc_tile(float* Cs,
   __syncthreads();
 }
 
-template <typename T>   // T = __nv_bfloat16 (a template: one copy per .so)
+// Copy 16 bytes global -> shared when `in` holds, else store 16 zero bytes.
+__device__ __forceinline__ void copy16(void* dst, const void* src, bool in) {
+  if (in)
+    __pipeline_memcpy_async(dst, src, 16);
+  else
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Stage w[k, c0 : c0 + K, col0 : col0 + NC] into B (leading dimension LD);
+// zero past Cin and Cout. `vec`: 16-byte asynchronous copies (Cout a
+// multiple of 16 / sizeof(T), base aligned), else scalar loads.
+template <typename T, int K, int NC, int LD, int NT>
+__device__ __forceinline__ void stage_weights(T* B, const T* __restrict__ w,
+                                              int k, int c0, int col0,
+                                              int cin, int cout, bool vec) {
+  constexpr int kV = 16 / sizeof(T);
+  if (vec) {
+    for (int e = threadIdx.x; e < K * (NC / kV); e += NT) {
+      const int kk = e / (NC / kV);
+      const int n = (e % (NC / kV)) * kV;
+      const int c = c0 + kk;
+      const int co = col0 + n;
+      copy16(B + kk * LD + n, w + ((size_t)k * cin + c) * cout + co,
+             c < cin && co < cout);
+    }
+  } else {
+    for (int e = threadIdx.x; e < K * NC; e += NT) {
+      const int kk = e / NC;
+      const int n = e % NC;
+      const int c = c0 + kk;
+      const int co = col0 + n;
+      B[kk * LD + n] = (c < cin && co < cout)
+                           ? w[((size_t)k * cin + c) * cout + co]
+                           : from_f32<T>(0.f);
+    }
+  }
+}
+
+// ---- the bf16 ring tile: 128 rows x NC columns per block (see the top)
+constexpr int kRingM = 128;            // output rows per block
+constexpr int kRingK = 32;             // Cin chunk per step
+constexpr int kRingStages = 3;         // steps in flight
+constexpr int kRingMaxK = 27;          // offsets a table may have
+constexpr int kRingGroups = 4;         // 32-row groups: warps over rows
+constexpr int kRingLdA = kRingK + 8;   // 32-byte aligned fragment rows
+
+template <int NC>
+struct RingTile {
+  using T = __nv_bfloat16;
+  static constexpr int kWC = 2;                 // warps over columns
+  static constexpr int kFC = NC / 16 / kWC;     // fragment columns per warp
+  static constexpr int kLdB = NC + 8;
+  static constexpr int kLdC = NC + 4;
+  static constexpr int kABytes = kRingM * kRingLdA * 2;
+  static constexpr int kStageBytes = kABytes + kRingK * kLdB * 2;
+  static constexpr int kRingBytes = kRingStages * kStageBytes;
+  static constexpr int kCBytes = kRingM * kLdC * 4;
+  static constexpr int kSmemBytes =
+      kRingBytes > kCBytes ? kRingBytes : kCBytes;
+  static_assert(kFC * 16 * kWC == NC, "whole fragments per warp");
+  static_assert(kABytes % 128 == 0 && kStageBytes % 128 == 0,
+                "aligned stages");
+  static_assert(kRingGroups * kWC * 32 == kThreads, "8 warps");
+
+  // One step: the warp's 32 rows x NC / 2 columns, acc += A @ B.
+  static __device__ __forceinline__ void step(AccFragment (&acc)[2][kFC],
+                                              const T* A, const T* B,
+                                              int wr, int wc) {
+    using namespace nvcuda;
+#pragma unroll
+    for (int ks = 0; ks < kRingK; ks += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], A + (wr + 16 * i) * kRingLdA + ks,
+                               kRingLdA);
+#pragma unroll
+      for (int j = 0; j < kFC; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b;
+        wmma::load_matrix_sync(b, B + ks * kLdB + wc + 16 * j, kLdB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
+      }
+    }
+  }
+};
+
+// Stage x[rows[r], c0 : c0 + kRingK] for the tile's 128 rows into A (zero
+// for a missing row and past Cin); rows of a 32-row group outside `groups`
+// are left as they are (their warps skip the step). `vec`: 16-byte copies.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* A, const T* __restrict__ x,
+                                           const int* rows, int groups,
+                                           int c0, int cin, int sentinel,
+                                           bool vec) {
+  if (vec) {
+#pragma unroll 1   // rolled: 128 registers, two blocks on an SM
+    for (int e = threadIdx.x; e < kRingM * (kRingK / 8); e += kThreads) {
+      const int r = e / (kRingK / 8);
+      const int c = 8 * (e % (kRingK / 8));
+      if (!(groups >> (r / 32) & 1)) continue;
+      const int src = rows[r];
+      copy16(A + r * kRingLdA + c, x + (size_t)src * cin + c0 + c,
+             src != sentinel && c0 + c < cin);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kRingM * kRingK; e += kThreads) {
+      const int r = e / kRingK;
+      const int c = e % kRingK;
+      if (!(groups >> (r / 32) & 1)) continue;
+      const int src = rows[r];
+      A[r * kRingLdA + c] = (src != sentinel && c0 + c < cin)
+                                ? x[(size_t)src * cin + c0 + c]
+                                : from_f32<T>(0.f);
+    }
+  }
+}
+
+template <int NC>
 __global__ void __launch_bounds__(kThreads)
-gather_gemm_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                      const int* __restrict__ idx,
-                      const uint8_t* __restrict__ valid,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ shift,
-                      const T* __restrict__ residual, T* __restrict__ out,
-                      int K, int n_out, int sentinel, int cin, int cout,
-                      int relu) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 only");
-  using namespace nvcuda;
-  __shared__ __align__(128) unsigned char smem[kTcBytes];
-  __shared__ int rows[kTcM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + kTcABytes);
-  float* Cs = reinterpret_cast<float*>(smem);
+gather_gemm_ring_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ w,
+                        const int* __restrict__ idx,
+                        const uint8_t* __restrict__ valid,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ shift,
+                        const __nv_bfloat16* __restrict__ residual,
+                        __nv_bfloat16* __restrict__ out, int K, int n_out,
+                        int sentinel, int cin, int cout, int relu) {
+  using Tile = RingTile<NC>;
+  using T = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int sidx[kRingMaxK * kRingM];          // (K, 128) indices
+  __shared__ int group_live[kRingMaxK * kRingGroups];
+  __shared__ int live_k[kRingMaxK];    // the live offsets, in order
+  __shared__ int live_g[kRingMaxK];    // their 32-row groups, a bit each
+  __shared__ int n_live_s;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
-  const int wr = (warp / 2) * 32;   // warp's row offset in the tile
-  const int wc = (warp % 2) * 32;   // warp's column offset
-  const int row0 = blockIdx.x * kTcM;
-  const int col0 = blockIdx.y * kTcN;
-  const T zero = __float2bfloat16(0.f);
+  const int group = warp / Tile::kWC;              // the warp's 32 rows
+  const int wr = 32 * group;
+  const int wc = (warp % Tile::kWC) * (NC / Tile::kWC);
+  const int row0 = blockIdx.x * kRingM;
+  const int col0 = blockIdx.y * NC;
 
-  AccFragment acc[2][2];
+  for (int e = tid; e < K * kRingM; e += kThreads) {
+    const int i = row0 + e % kRingM;
+    sidx[e] = i < n_out ? idx[(size_t)(e / kRingM) * n_out + i] : sentinel;
+  }
+  __syncthreads();
+  if (tid < K * kRingGroups) {   // (offset, group) = (tid / 4, tid % 4)
+    int any = 0;
+    for (int j = 0; j < 32; ++j)   // rotated start: no bank conflict
+      any |= sidx[32 * tid + (j + tid) % 32] != sentinel;
+    group_live[tid] = any;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int k = 0; k < K; ++k) {
+      int g = 0;
+      for (int j = 0; j < kRingGroups; ++j)
+        g |= group_live[kRingGroups * k + j] << j;
+      if (g) {
+        live_k[n] = k;
+        live_g[n] = g;
+        ++n;
+      }
+    }
+    n_live_s = n;
+  }
+  __syncthreads();
+
+  const int chunks = (cin + kRingK - 1) / kRingK;
+  const int steps = n_live_s * chunks;
+  const bool vec_a = cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_w =
+      cout % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  auto abuf = [&](int s) {
+    return reinterpret_cast<T*>(smem + (s % kRingStages) * Tile::kStageBytes);
+  };
+  auto bbuf = [&](int s) {
+    return reinterpret_cast<T*>(smem + (s % kRingStages) * Tile::kStageBytes +
+                                Tile::kABytes);
+  };
+  // one cp.async group per step, committed also when empty, so that the
+  // wait below counts steps
+  auto stage = [&](int s) {
+    if (s < steps) {
+      const int k = live_k[s / chunks];
+      const int c0 = (s % chunks) * kRingK;
+      stage_rows(abuf(s), x, sidx + k * kRingM, live_g[s / chunks], c0, cin,
+                 sentinel, vec_a);
+      stage_weights<T, kRingK, NC, Tile::kLdB, kThreads>(
+          bbuf(s), w, k, c0, col0, cin, cout, vec_w);
+    }
+    __pipeline_commit();
+  };
+
+  AccFragment acc[2][Tile::kFC];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k = 0; k < K; ++k) {
-    int any = 0;
-    for (int r = tid; r < kTcM; r += kThreads) {
-      const int i = row0 + r;
-      const int src = (i < n_out) ? idx[(size_t)k * n_out + i] : sentinel;
-      rows[r] = src;
-      any |= (src != sentinel);
-    }
-    if (!__syncthreads_or(any)) continue;
-    for (int c0 = 0; c0 < cin; c0 += kTcK) {
-      for (int e = tid; e < kTcM * kTcK; e += kThreads) {
-        const int r = e / kTcK;
-        const int kk = e % kTcK;
-        const int src = rows[r];
-        const int c = c0 + kk;
-        As[r * kTcLdA + kk] = (src != sentinel && c < cin)
-                                  ? x[(size_t)src * cin + c] : zero;
-      }
-      stage_weights_tc(Bs, w, k, c0, col0, cin, cout);
-      __syncthreads();
-      wmma_chunk(As, Bs, acc, wr, wc);
-      __syncthreads();
-    }
+    for (int j = 0; j < Tile::kFC; ++j)
+      nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
+  for (int s = 0; s < kRingStages - 1; ++s) stage(s);
+  for (int s = 0; s < steps; ++s) {
+    __pipeline_wait_prior(kRingStages - 2);
+    __syncthreads();   // step s landed; step s - 1's buffers are free
+    stage(s + kRingStages - 1);
+    if (live_g[s / chunks] >> group & 1)
+      Tile::step(acc, abuf(s), bbuf(s), wr, wc);
   }
+  __pipeline_wait_prior(0);
+  __syncthreads();   // every product read; the ring is free
 
-  store_acc_tile(Cs, acc, wr, wc);
-  for (int e = tid; e < kTcM * kTcN; e += kThreads) {
-    const int r = e / kTcN;
-    const int n = e % kTcN;
+  float* Cs = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < Tile::kFC; ++j)
+      nvcuda::wmma::store_matrix_sync(
+          Cs + (wr + 16 * i) * Tile::kLdC + wc + 16 * j, acc[i][j],
+          Tile::kLdC, nvcuda::wmma::mem_row_major);
+  __syncthreads();
+#pragma unroll 1   // rolled: 128 registers, two blocks on an SM
+  for (int e = tid; e < kRingM * NC; e += kThreads) {
+    const int r = e / NC;
+    const int n = e % NC;
     const int i = row0 + r;
     const int co = col0 + n;
     if (i >= n_out || co >= cout) continue;
-    epilogue_store(Cs[r * kTcLdC + n], valid[i] ? 1.f : 0.f,
+    epilogue_store(Cs[r * Tile::kLdC + n], valid[i] ? 1.f : 0.f,
                    (size_t)i * cout + co, co, scale, shift, residual, out,
                    relu);
   }
+}
+
+template <int NC>
+int launch_ring(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const int* idx, const uint8_t* valid, const float* scale,
+                const float* shift, const __nv_bfloat16* residual,
+                __nv_bfloat16* out, int K, int n_out, int sentinel, int cin,
+                int cout, int relu, cudaStream_t stream) {
+  constexpr int kBytes = RingTile<NC>::kSmemBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      gather_gemm_ring_kernel<NC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((n_out + kRingM - 1) / kRingM, (cout + NC - 1) / NC);
+  gather_gemm_ring_kernel<NC><<<grid, kThreads, kBytes, stream>>>(
+      x, w, idx, valid, scale, shift, residual, out, K, n_out, sentinel, cin,
+      cout, relu);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -353,9 +555,18 @@ int launch_gather_gemm(const void* x, const void* w, const void* idx,
   const T* rp = static_cast<const T*>(residual);
   T* op = static_cast<T*>(out);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    dim3 grid((n_out + kTcM - 1) / kTcM, (cout + kTcN - 1) / kTcN);
-    gather_gemm_tc_kernel<T><<<grid, kThreads, 0, stream>>>(
-        xp, wp, ip, vp, sp, hp, rp, op, K, n_out, sentinel, cin, cout, relu);
+    if (K > kRingMaxK) return 1;   // cudaErrorInvalidValue
+    if (cout <= 32)
+      return launch_ring<32>(xp, wp, ip, vp, sp, hp, rp, op, K, n_out,
+                             sentinel, cin, cout, relu, stream);
+    if (cout <= 64)
+      return launch_ring<64>(xp, wp, ip, vp, sp, hp, rp, op, K, n_out,
+                             sentinel, cin, cout, relu, stream);
+    if (cout <= 96)
+      return launch_ring<96>(xp, wp, ip, vp, sp, hp, rp, op, K, n_out,
+                             sentinel, cin, cout, relu, stream);
+    return launch_ring<128>(xp, wp, ip, vp, sp, hp, rp, op, K, n_out,
+                            sentinel, cin, cout, relu, stream);
   } else if (cout % 64 == 0) {
     dim3 grid((n_out + 63) / 64, cout / 64);
     gather_gemm_kernel<T, 64><<<grid, kThreads, 0, stream>>>(

@@ -229,7 +229,11 @@ def brick_conv3(g, w, bg: BrickGraph, scale=None, offset=None, residual=None,
     Cout) in g.dtype; scale/offset: (Cout,) f32; residual: (nb_pad, CELLS,
     Cout) in g.dtype. Returns (nb_pad, CELLS, Cout) in g.dtype with interior
     cells valid and halo cells zero (call `halo_exchange` before the next
-    conv reads them)."""
+    conv reads them). The occupancy mask selects: an empty cell is an exact
+    zero even where a NaN or an infinity reaches it. This differs from the
+    reference, which multiplies by the mask
+    (unscene3d_tpu/ops/brick_engine.py:188); the two agree on finite
+    inputs."""
     cout = w.shape[-1]
     scale, offset = _affine(scale, offset, cout, g.device)
     if g.device.type == "cpu":
@@ -276,9 +280,13 @@ brick_conv3.launches = 0
 
 def brick_conv1(g, w, bg: BrickGraph, scale=None, offset=None):
     """k1 conv (+ optional scale/offset) in brick space: a plain matmul in
-    f32, masked to occupied cells (residual-downsample shortcuts)."""
+    f32, masked to occupied cells (residual-downsample shortcuts). The mask
+    selects, as in `brick_conv3`: an empty cell is an exact zero even where
+    its input holds a NaN or an infinity. This differs from the reference,
+    which multiplies by the mask (unscene3d_tpu/ops/brick_engine.py:265);
+    the two agree on finite inputs."""
     y = torch.matmul(g.float(), w.float())
     if scale is not None:
         y = y * scale + offset
-    y = y * bg.occ[..., None].to(y.dtype)
+    y = torch.where(bg.occ[..., None], y, 0.0)
     return y.to(g.dtype)

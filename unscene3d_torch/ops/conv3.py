@@ -10,9 +10,10 @@ equal to N-1 (the always-padding row) are missing neighbours and skipped.
 
 Bound on the H100: the row gather, ~8.7 valid neighbour rows x Cin x itemsize
 per output row at level 0 of the bench scene. The CUDA kernel
-(csrc/conv3.cu, csrc/gather_gemm.cuh) tiles output rows x channels per
-block, skips offsets absent from the whole tile and gathers rows straight
-from the neighbour map; see the header for the design.
+(csrc/conv3.cu, csrc/gather_gemm.cuh) tiles output rows x all of Cout (up to
+128) per block, walks only the offsets present in the tile and gathers rows
+straight from the neighbour map (bf16: 16-byte cp.async into a 3-stage ring);
+see the header for the design.
 
 `conv3_fwd` runs the plain twin `conv3_fwd_plain` for CPU tensors only. For a
 CUDA tensor it launches the kernel or raises; `conv3_fwd.launches` counts the
@@ -27,10 +28,11 @@ valid rows,
     dW[k] = sum_i x[nbr_idx[k, i]]^T (x) gm[i]          (f32, all 27 offsets)
 
 `conv3_bwd` launches the dx gather-GEMM (kernel 1's body under its own entry
-point) and then `conv3_dw`; `conv3_dw` launches the dW kernel, which reduces
-fixed row ranges into an f32 scratch and sums them in a second pass (no
-atomics). Each has a plain twin and its own launch counter. The autograd
-Function that uses them is ops/conv_ops.py:_Conv3.
+point) and then `conv3_dw`; `conv3_dw` launches the dW kernel, which
+compacts each offset's present pairs inside the block, reduces fixed row
+ranges into an f32 scratch and sums them in a second pass (no atomics; see
+csrc/conv3_bwd.cu). Each has a plain twin and its own launch counter. The
+autograd Function that uses them is ops/conv_ops.py:_Conv3.
 """
 
 from __future__ import annotations
@@ -139,10 +141,13 @@ conv3_fwd.launches = 0
 
 
 # ------------------------------------------------------- kernels 4 and 5
-# the dW kernel's grid: ~8 waves of blocks on 132 SMs, each row range at
-# least _DW_MIN_ROWS rows (fewer, longer ranges keep the partials small)
+# the dW kernel's grid: a block per (offset, row range, 128-wide Cin tile,
+# 128-wide Cout tile); ~1024 blocks are ~4 waves at two resident blocks on
+# each of 132 SMs, and each row range has at least _DW_MIN_ROWS rows (fewer,
+# longer ranges keep the partials small)
 _DW_TARGET_BLOCKS = 1024
 _DW_MIN_ROWS = 2048
+_DW_TILE = 128
 
 
 def flip_transpose(w):
@@ -176,7 +181,7 @@ def dw_splits(n: int, cin: int, cout: int) -> tuple[int, int]:
     """(row ranges, rows per range) of the dW kernel: enough blocks to fill
     the card, none shorter than _DW_MIN_ROWS rows; a function of the shapes
     only, so the summation order is fixed."""
-    tiles = 27 * -(-cin // 64) * -(-cout // 64)
+    tiles = 27 * -(-cin // _DW_TILE) * -(-cout // _DW_TILE)
     splits = max(1, min(-(-_DW_TARGET_BLOCKS // tiles), n // _DW_MIN_ROWS))
     rows = -(-n // splits)
     rows = -(-rows // 32) * 32

@@ -70,11 +70,16 @@ def build_win_graph(nbr_idx: np.ndarray, n_pad: int, w_sub=384,
     n_pad - 1). The centre offset (13) is not tabled. `w_sub` is one width
     or (W_own, W_dx); `w_union` is clamped to n_pad; a group whose G * tile
     rows exceed the union window is halved until they fit (grouping only
-    amortizes the window read), so a group that is no power of two can trip
-    the divisibility assert below."""
+    amortizes the window read). The group must be a power of two: the
+    reference halves any group the same way, and a group that is none (6
+    -> 3) may stop dividing the level's tiles and trip its divisibility
+    assert, so the port raises ValueError for one up front."""
     nbr_idx = np.asarray(nbr_idx)
     assert nbr_idx.shape[0] == 27 and nbr_idx.shape[1] == n_pad
     group, tile = int(group), int(tile)
+    if group < 1 or group & (group - 1):
+        raise ValueError(f"build_win_graph: group {group} is not a power of "
+                         "two")
     ks = [k for k in range(27) if k != 13]
     if isinstance(w_sub, (tuple, list)):
         wo, wx = (min(int(v), n_pad) for v in w_sub[:2])
