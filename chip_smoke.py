@@ -104,10 +104,10 @@ PER_TRAIN_STEP = {"conv3_fwd": 93, "conv3_bwd": 46, "conv3_dw": 47,
                   "csr_conv3": 0, "brick_conv3": 0, "brick_conv_proto": 0,
                   "win_decompose": 0}
 # with csr_levels=(0, 1, 2): kernel 6 runs 23 forward + 22 recomputed + 22
-# dx (none for the stem); kernel 1 24 + 24 recomputed, kernels 4 and 5 at the
-# 24 convs of levels 3 and 4; the 23 CSR dW are csr_dw in plain torch
+# dx (none for the stem); kernel 1 24 + 24 recomputed, kernel 4 at the 24
+# convs of levels 3 and 4; kernel 5 their 24 dW and the 23 of the CSR levels
 PER_TRAIN_STEP_CSR = dict(PER_TRAIN_STEP, conv3_fwd=48, conv3_bwd=24,
-                          conv3_dw=24, csr_conv3=67)
+                          conv3_dw=47, csr_conv3=67)
 # the CSC feature extractor (the backbone alone, multires mode): the 47 k3
 # convs and the 8 k2 convs; no pools, no segment sum
 PER_CSC_FORWARD = dict(PER_FORWARD, k_apply_sum=0, segment_sum=0)
@@ -206,14 +206,14 @@ def phase_build():
 
 
 def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
-             other=None):
+             other=None, equal_rows=None):
     """Run kernel twice (bitwise equal), compare with the twin, time both.
     work = (bytes moved, FLOPs done, dtype of the products) gives the bound:
     the larger of bytes over the card's memory rate and FLOPs over its peak
     rate for that type (FLOPs may be a dict by dtype, whose times add). library: one PyTorch call computing the same
     function, timed only. other = (name, fn): another kernel of the port
     that computes the same function, held to the same tolerance and
-    timed."""
+    timed; equal_rows: a row mask on which the two must be bitwise equal."""
     got = kernel()
     again = kernel()
     torch.cuda.synchronize()
@@ -248,10 +248,16 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
         other_err = (got.float() - alt.float()).abs().max().item()
         out["other_ms"] = cuda_ms(other_fn)
         extra += (f" vs {other_name}: max_rel_err={other_err / scale:.3e} "
-                  f"{other_name}_ms={out['other_ms']:.3f}")
+                  f"{other_name}_ms={out['other_ms']:.3f} (ratio "
+                  f"{ms / out['other_ms']:.3f})")
         if not other_err <= tol * scale:
             raise AssertionError(f"{name} {dtype} vs {other_name}: error "
                                  f"{other_err} > {tol} * {scale}")
+        if equal_rows is not None:
+            if not torch.equal(got[equal_rows], alt[equal_rows]):
+                raise AssertionError(f"{name} {dtype}: not bitwise "
+                                     f"{other_name} on the masked rows")
+            extra += f" bitwise {other_name} on valid rows"
     log(f"  {name:44s} {str(dtype)[6:]:8s} max_abs_err={err:.3e} "
         f"max_rel_err={err / scale:.3e} (tol {tol:g}) ms={ms:.3f} "
         f"plain_ms={plain_ms:.3f}{extra}")
@@ -434,6 +440,7 @@ def _traced(fn, activities, reps=3):
 
 # kernels of the port summed by body in a trace: name substring -> label
 KERNEL_FAMILIES = {"gather_gemm": "gather-GEMM (kernels 1, 2 weighted, 4 dx)",
+                   "csr_conv": "kernel 6 (forward and dx)",
                    "dw_": "dW (kernel 5, with its range sum)"}
 
 
@@ -753,10 +760,12 @@ def phase_train_profile(trainer, batch, gen):
 
 def phase_csr_kernels(dev, batch, tbatch):
     """Kernel 6 against its twin and against kernel 1 on the same inputs
-    (the same function), at the shapes the csr_levels paths give it: the
+    (the same function; in bf16 bitwise on valid rows, since the two share
+    the ring main loop), at the shapes the csr_levels paths give it: the
     bench scene's levels for the forward, the train batch's level 0 for dx
-    (kernel 6 over gm with flip-transposed weights). csr_dw (plain torch)
-    is timed beside kernel 5 there."""
+    (kernel 6 over gm with flip-transposed weights). There kernel 5, the
+    csr_levels dW, is held against csr_dw (the reference's dW over the
+    pairs, plain torch) and both are timed."""
     from unscene3d_torch.ops.conv3 import (conv3_dw, conv3_fwd,
                                            flip_transpose)
     from unscene3d_torch.ops.csr_conv import (csr_conv3_fwd,
@@ -800,7 +809,8 @@ def phase_csr_kernels(dev, batch, tbatch):
                 work=work(x, w, lvl, cout, kw["scale"], kw["shift"],
                           kw.get("residual")),
                 other=("conv3_fwd", lambda: conv3_fwd(x, w, lvl.nbr_idx,
-                                                      lvl.valid, **kw)))
+                                                      lvl.valid, **kw)),
+                equal_rows=lvl.valid if dtype == torch.bfloat16 else None)
         # the backward at the train batch's level 0, 128 -> 96
         lvl = tbatch.graph.levels[0].to(dev)
         n, cin, cout = lvl.num_padded, 128, 96
@@ -816,7 +826,8 @@ def phase_csr_kernels(dev, batch, tbatch):
             lambda: csr_conv3_fwd_plain(gm, wf, lvl.csr, lvl.valid),
             work=work(gm, wf, lvl, cin),
             other=("conv3_fwd", lambda: conv3_fwd(gm, wf, lvl.nbr_idx,
-                                                  lvl.valid)))
+                                                  lvl.valid)),
+            equal_rows=lvl.valid if dtype == torch.bfloat16 else None)
         dw, dw5 = csr_dw(x, gm, lvl.csr), conv3_dw(x, gm, lvl.nbr_idx)
         err = (dw - dw5).abs().max().item() / dw5.abs().max().item()
         dw_ms = cuda_ms(lambda: csr_dw(x, gm, lvl.csr), reps=5)
@@ -1030,8 +1041,12 @@ def phase_train_csr(dev, batch):
     """The train path with csr_levels=(0, 1, 2): build_trainer(bf16) on the
     8-scene batch collated with those levels, one warm-up step and
     CSR_TRAIN_STEPS timed ones, launch counts read around exactly these
-    steps; then one more step with CUDA events around every csr_dw call for
-    its share of the step."""
+    steps; its bitwise repeatability (phase_train_repeat); then one more
+    step with CUDA events around every dW of the CSR levels (kernel 5) for
+    its share of the step, and one traced step for the device time by
+    kernel."""
+    from torch.profiler import ProfilerActivity
+
     from unscene3d_torch.ops import conv_ops
     from unscene3d_torch.train.loop import build_trainer
 
@@ -1069,8 +1084,9 @@ def phase_train_csr(dev, batch):
     if unchanged != ["backbone.final.bias"]:
         raise AssertionError(f"csr_levels: params unchanged after {n_steps} "
                              f"steps: {unchanged}")
+    phase_train_repeat(dev, trainer, batch)
     events = []
-    plain_dw = conv_ops.csr_dw
+    plain_dw = conv_ops.conv3_dw
 
     def timed_dw(*args):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1080,22 +1096,38 @@ def phase_train_csr(dev, batch):
         events.append((start, end))
         return out
 
-    conv_ops.csr_dw = timed_dw
+    conv_ops.conv3_dw = timed_dw
     try:
         t0 = time.perf_counter()
         trainer.train_step(batch, gen)
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        conv_ops.csr_dw = plain_dw
+        conv_ops.conv3_dw = plain_dw
+    if len(events) != PER_FORWARD_CSR["csr_conv3"]:
+        raise AssertionError(f"{len(events)} dW of the CSR levels in a step, "
+                             f"expected {PER_FORWARD_CSR['csr_conv3']}")
     dw_ms = sum(a.elapsed_time(b) for a, b in events)
     warm = statistics.median(times[1:])
     log(f"train bf16, batch {TRAIN_BATCH}, csr_levels={CSR_LEVELS}: first "
         f"step {times[0]:.1f}ms, warm median of {CSR_TRAIN_STEPS} "
         f"{warm:.1f}ms (min {min(times[1:]):.1f}, max {max(times[1:]):.1f}) "
         f"= {1e3 * TRAIN_BATCH / warm:.2f} scenes/s; peak device memory "
-        f"{peak / 2**30:.2f} GiB; csr_dw {len(events)} calls, {dw_ms:.1f}ms "
-        f"of a {step_ms:.1f}ms step ({dw_ms / step_ms:.1%})")
+        f"{peak / 2**30:.2f} GiB; dW of the CSR levels (kernel 5) "
+        f"{len(events)} calls, {dw_ms:.1f}ms of a {step_ms:.1f}ms step "
+        f"({dw_ms / step_ms:.1%})")
+    rows, busy, window = _traced(lambda: trainer.train_step(batch, gen),
+                                 [ProfilerActivity.CUDA], reps=1)
+    if not rows:
+        log("csr_levels train profile: no device time in the trace (not "
+            "measured)")
+        return launches
+    log(f"csr_levels train profile (device tracing): device busy "
+        f"{busy:.1f}ms of a {window:.1f}ms traced step, idle share "
+        f"{1 - busy / window:.1%}; {sum(r[2] for r in rows)} device ops")
+    for ms, name, n in rows[:12]:
+        log(f"  {ms:8.2f}ms {100 * ms / busy:5.1f}%  x{n:<4d} {name[:90]}")
+    _family_shares(rows, busy, "csr_levels train step")
     return launches
 
 
@@ -1650,6 +1682,11 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in res[name].values()),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=m["library_ms"]))
+        if name == "csr_conv3":   # beside kernel 1, same inputs
+            kernels[-1].update(kernel1_ms=m["other_ms"])
+            log(f"kernel 6 (csr_conv3) bench L0 128->96 +res bf16: "
+                f"{m['ms']:.3f} ms, kernel 1 {m['other_ms']:.3f} ms (ratio "
+                f"{m['ms'] / m['other_ms']:.3f}), bound {m['bound_ms']:.4f}")
         if name == "conv3_dw":   # beside csr_dw (plain torch), same data
             csr_ms, k5_ms = dw_vs_csr[torch.bfloat16]
             kernels[-1].update(csr_dw_ms=csr_ms, ms_beside_csr_dw=k5_ms)

@@ -32,7 +32,7 @@ from unscene3d_torch.models.weights import (load_flax_variables,
                                             torch_params_from_flax,
                                             torch_state_from_flax)
 from unscene3d_torch.ops import conv_ops
-from unscene3d_torch.ops.conv3 import conv3_fwd_plain
+from unscene3d_torch.ops.conv3 import conv3_dw_plain, conv3_fwd_plain
 from unscene3d_torch.ops.csr_conv import (OFFSETS, build_csr_graph,
                                           csr_conv3_fwd, csr_conv3_fwd_plain,
                                           csr_dw)
@@ -257,7 +257,9 @@ def test_csr_backward_matches_the_gather_backward(grads):
 
 def test_csr_backward_skips_dx_of_a_leaf_without_grad():
     """The stem: its input features need no gradient, so no dx is computed;
-    dW is (27, Cin, Cout) f32 from csr_dw, in offset order."""
+    dW is (27, Cin, Cout) f32 from kernel 5's wrapper (its twin on the CPU)
+    over the level's map, in offset order, and agrees with csr_dw (the
+    reference's dW over the pairs) to rtol 1e-5."""
     nbr, valid, n = _random_level(seed=4)
     lvl = _torch_level(nbr, valid)
     rng = np.random.RandomState(5)
@@ -266,14 +268,48 @@ def test_csr_backward_skips_dx_of_a_leaf_without_grad():
     y = conv_ops.sparse_conv3(x, w, lvl)
     y.sum().backward()
     gm = _t(valid[:, None].astype(np.float32)).expand(-1, 8).contiguous()
-    dw = csr_dw(x, gm, lvl.csr)
+    dw = conv3_dw_plain(x, gm, lvl.nbr_idx)
     assert dw.shape == (27, 3, 8) and dw.dtype == torch.float32
     assert torch.equal(w.grad, dw)
+    np.testing.assert_allclose(dw.numpy(), csr_dw(x, gm, lvl.csr).numpy(),
+                               rtol=1e-5, atol=1e-6)
     k = OFFSETS[5]
     sel = nbr[k] != N_PAD - 1
     np.testing.assert_allclose(
         dw[k].numpy(), x.numpy()[nbr[k][sel]].T @ gm.numpy()[sel], rtol=1e-5,
         atol=1e-6)
+
+
+def test_csr_dw_is_kernel_5_on_a_collated_level(collated):
+    """_CsrConv3's dW (kernel 5's wrapper over the level's map) equals
+    csr_dw over the collator's pair tables on level 0 of a `csr_levels`
+    batch, f32, rtol 1e-5 (atol 1e-5 of max|csr_dw|: the two sum the same
+    products in another order); the forward and dx stay kernel 6's."""
+    _, (batch, _) = collated
+    lvl = batch.graph.levels[0]
+    assert lvl.csr is not None
+    rng = np.random.RandomState(11)
+    n, cin, cout = lvl.num_padded, 16, 24
+    x = _t(rng.randn(n, cin).astype(np.float32)).requires_grad_()
+    w = _t((rng.randn(27, cin, cout) * 0.1).astype(np.float32))
+    w.requires_grad_()
+    cot = _t(rng.randn(n, cout).astype(np.float32))
+    calls = []
+    plain = conv_ops.conv3_dw
+    conv_ops.conv3_dw = lambda *a: (calls.append(1), plain(*a))[1]
+    try:
+        (conv_ops.sparse_conv3(x, w, lvl) * cot).sum().backward()
+    finally:
+        conv_ops.conv3_dw = plain
+    assert len(calls) == 1
+    gm = cot * lvl.valid[:, None].to(torch.float32)
+    ref = csr_dw(x.detach(), gm, lvl.csr).numpy()
+    np.testing.assert_allclose(w.grad.numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+    np.testing.assert_allclose(
+        x.grad.numpy(), csr_conv3_fwd_plain(
+            gm, torch.flip(w.detach(), (0,)).transpose(1, 2).contiguous(),
+            lvl.csr, lvl.valid).numpy(), rtol=1e-5, atol=1e-6)
 
 
 def test_fused_epilogue_under_grad_raises_at_a_csr_level():

@@ -11,7 +11,9 @@ C++20 compiler is present.
 Tolerances, relative to max|twin|: f32 1e-5 (summation order only); bf16
 8e-3 (an output may round one bf16 ulp apart). The dW kernel's output is f32
 in both dtypes (exact products summed in f32): 1e-5. Kernels 6 and 7 are
-also held against kernel 1's twin: the same function from other tables.
+also held against kernel 1's twin: the same function from other tables; in
+bf16 kernel 6 runs kernel 1's ring main loop and equals emulated kernel 1
+bitwise on valid rows.
 Kernels 8 and 9 are emulated in tests/test_torch_kernels_emulated_proto.py (a
 file of its own, so that the two run on different workers).
 """
@@ -300,19 +302,25 @@ def test_emulated_csr_conv3(emu, levels, dtype, lv, cin, cout, epi):
                                 relu), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_emulated_csr_conv3_ragged_level(emu, dtype):
-    """A level of 200 rows, no multiple of the table's 64-row tiles nor of
-    the kernels' 64- and 128-row tiles: the last tile's pair range ends where
-    the next offset's begins, and the last block masks its missing rows. The
-    map is random (the function is defined by the tables alone)."""
+def _ragged_map(n=200):
+    """A random (27, n) map whose misses point at row n - 1: a level of n
+    rows, no multiple of the table's 64-row tiles nor of the kernels' 64-
+    and 128-row tiles (the function is defined by the tables alone)."""
     rng = torch.Generator().manual_seed(0)
-    n, cin, cout = 200, 24, 40
     nbr = torch.full((27, n), n - 1, dtype=torch.int32)
     hit = torch.rand(27, n - 1, generator=rng) < 0.3
     src = torch.randint(0, n - 1, (27, n - 1), generator=rng).int()
     nbr[:, :n - 1] = torch.where(hit, src, nbr[:, :n - 1])
     nbr[13, :n - 1] = torch.arange(n - 1, dtype=torch.int32)
+    return nbr, rng
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_csr_conv3_ragged_level(emu, dtype):
+    """A level of 200 rows: the last tile's pair range ends where the next
+    offset's begins, and the last block masks its missing rows."""
+    nbr, rng = _ragged_map()
+    n, cin, cout = nbr.shape[1], 24, 40
     csr = build_csr_graph(nbr.numpy())
     tiles = -(-n // 64)
     ts = csr.tile_start.numpy()
@@ -331,6 +339,58 @@ def test_emulated_csr_conv3_ragged_level(emu, dtype):
     assert code == 0
     _close(out, csr_conv3_fwd_plain(x, w, csr, valid), dtype)
     _close(out, conv3_fwd_plain(x, w, nbr, valid), dtype)
+
+
+@pytest.mark.parametrize("lv,cin,cout,epi", [
+    (1, 3, 32, "scale_relu"),     # the stem's Cin 3: scalar row staging
+    (2, 64, 96, "none"),          # Cout 96
+    (2, 128, 96, "all"),          # the main L0 shape: 4 Cin chunks
+    (3, 96, 128, "scale_relu"),   # Cout 128
+    (4, 40, 256, "all"),          # two 128-wide column tiles
+    ("ragged", 24, 40, "all"),    # 200 rows, a group with no pair
+])
+def test_emulated_csr_conv3_equals_kernel_1(emu, levels, lv, cin, cout,
+                                            epi):
+    """bf16: kernel 6 (kernel 1's ring main loop behind a prologue that
+    reads the pair tables) and kernel 1 on the same level, the tables built
+    from its map, are bitwise equal on every valid row, and kernel 6 is zero
+    on the padding rows (x's padding rows hold noise) and within tolerance
+    of its twin. On the ragged level one 32-row group of the first tile has
+    pairs at offset 0 and the next has none."""
+    dtype = torch.bfloat16
+    if lv == "ragged":
+        nbr, g = _ragged_map()
+        n = nbr.shape[1]
+        nbr[0, 32:64] = n - 1
+        valid = torch.arange(n) < n - 1
+        assert (nbr[0, :32] != n - 1).any()
+    else:
+        nbr, valid = levels[lv].nbr_idx, levels[lv].valid
+        n = levels[lv].num_padded
+        g = torch.Generator().manual_seed(lv * 100 + cin)
+    csr = build_csr_graph(nbr.numpy())
+    x = torch.randn(n, cin, generator=g).to(dtype)      # noisy padding rows
+    w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(dtype)
+    sc = sh = res = None
+    if epi != "none":
+        sc = torch.rand(cout, generator=g) + 0.5
+        sh = torch.randn(cout, generator=g)
+    if epi == "all":
+        res = torch.randn(n, cout, generator=g).to(dtype)
+    relu = epi != "none"
+    out6 = torch.full((n, cout), float("nan"), dtype=dtype)
+    out1 = torch.full((n, cout), float("nan"), dtype=dtype)
+    assert emu.csr_conv3_fwd(
+        _p(x), _p(w), _p(csr.pair_in), _p(csr.pair_out), _p(csr.tile_start),
+        _p(valid), _p(sc), _p(sh), _p(res), _p(out6), n, cin, cout,
+        int(relu), 1, None) == 0
+    assert emu.conv3_fwd(_p(x), _p(w), _p(nbr), _p(valid), _p(sc), _p(sh),
+                         _p(res), _p(out1), n, cin, cout, int(relu), 1,
+                         None) == 0
+    assert torch.equal(out6[valid], out1[valid])
+    assert not out6[~valid].any()
+    _close(out6, csr_conv3_fwd_plain(x, w, csr, valid, sc, sh, res, relu),
+           dtype)
 
 
 def _brick_level(xyz, n_pad, nb_pad):

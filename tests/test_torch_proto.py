@@ -367,3 +367,43 @@ def test_sass_opcode_counts():
     assert list(counts) == ["_Z3fooPf", "_Z3barPf"]
     assert counts["_Z3fooPf"] == {"LDC": 1, "LD": 1, "MOVM": 1, "HMMA": 2}
     assert counts["_Z3barPf"] == {"LDS": 1, "BAR": 1, "EXIT": 1}
+
+
+def test_ring_times_runs_every_case_on_the_cpu():
+    """`bench/ring_times.py` on "cpu" at a tiny size (its times are then
+    the twins' on the host clock, no device time): every case of kernel 1,
+    kernel 2's up2 and kernel 6 beside kernel 1 gets a positive time."""
+    from unscene3d_torch.bench import ring_times
+
+    got = ring_times.run(
+        "cpu", bench=dict(num_points=4000, num_objects=3, extent=2.0,
+                          seed=0),
+        train=dict(num_points=3000, num_objects=3, extent=2.0),
+        train_batch=1, voxel=0.05)
+    cases = ["L0 128->96 +res", "L0 3->32", "L2 128->128",
+             "as dx, train L0 128->96"]
+    assert set(got) == ({"conv3_fwd L0 3->32", "conv3_fwd L0 128->96 +res",
+                         "conv3_fwd L3 384->256",
+                         "k_apply up2 L1->L0 96->96"}
+                        | {f"csr_conv3 {c}" for c in cases}
+                        | {f"conv3_fwd beside it, {c}" for c in cases})
+    assert all(t > 0 for t in got.values())
+
+
+def test_sass_digests_ignore_addresses_and_encodings():
+    """`bench/sass.py`'s digest of a kernel's instruction text is the same
+    for the same instructions at other addresses with other encodings, and
+    differs when one operand differs."""
+    from unscene3d_torch.bench.sass import digests
+
+    def kernel(name, base, reg):
+        return (f"\t\tFunction : {name}\n"
+                f"        /*{base:04x}*/   LDC R1, c[0x0][0x28] ;   "
+                f"/* 0x00000a00ff01{base:04x} */\n"
+                f"        /*{base + 16:04x}*/   @!P0 IADD3 R{reg}, R1, 0x4, "
+                f"RZ ;   /* 0x000fe2 */\n")
+
+    d = digests("\tcode for sm_90a\n" + kernel("_Z1a", 0, 2)
+                + kernel("_Z1b", 0x40, 2) + kernel("_Z1c", 0, 3))
+    assert list(d) == ["_Z1a", "_Z1b", "_Z1c"]
+    assert d["_Z1a"] == d["_Z1b"] != d["_Z1c"]

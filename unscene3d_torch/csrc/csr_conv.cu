@@ -1,8 +1,8 @@
 // Kernel 6: k3 submanifold sparse conv over compacted valid pairs.
 //
 // Replaces unscene3d_tpu/ops/csr_conv.py:csr_conv3_fwd (Pallas kernel
-// `_kernel`). The same function as kernel 1 (conv3.cu), from pair tables
-// instead of the (27, N) neighbour map:
+// `_kernel`, :150, pallas_call :295). The same function as kernel 1
+// (conv3.cu), from pair tables instead of the (27, N) neighbour map:
 //
 //   out[i] = valid[i] * epi( x[i] @ w[13]
 //                            + sum_{k != 13, (j, i) in pairs_k} x[j] @ w[k] )
@@ -10,27 +10,42 @@
 // The pairs (pair_in = j, pair_out = i) hold only the neighbours that exist,
 // sorted by (offset, out row); tile_start[ki * tiles + t] is where the pairs
 // of offset ki and out rows [64 t, 64 t + 64) begin, and the next entry is
-// where they end (the array is flat). The TPU kernel read fixed two-block
-// windows of a bucketed pair axis and selected rows with a one-hot matmul;
-// here the ranges are ragged and exact, and x's padding rows are never read.
+// where they end (the array is flat). x's padding rows are read only by the
+// centre offset of padding rows, whose outputs the mask clears.
 //
-// Bound on the H100: the gather of the paired rows (about 7.6 per valid row
-// at level 0 of a 2 cm scene, of 26 offsets). What compaction buys over
-// kernel 1 is the product: kernel 1 multiplies a full row tile per offset
-// that any row of the tile has, this kernel only the packed pairs. One
-// 256-thread block owns TM out rows x TN channels and keeps their f32
-// accumulators in registers (thread t: column t % TN, every (256 / TN)-th
-// row). Per offset it reads the tile's pair range (an empty one costs
-// nothing more), stages the pairs' x rows packed into shared memory (padded
-// with zero rows to the product's row step, never reading past the range),
-// multiplies the packed rows by w[k] (f32 FMA with a 4x4 register tile;
-// bf16 WMMA 16x16x16 with f32 accumulation, only the 16-row fragments that
-// hold pairs) and writes the packed product to shared memory; each thread
-// then adds, for each of its rows that has a pair, the product row of that
-// pair (slot[row]). The centre offset (13) runs in its turn through the
-// same code with the identity pairing. Rows are unique within an offset and
-// offsets go in order: a fixed summation order, no atomics, two runs bitwise
-// equal.
+// bf16 (csr_conv_ring_kernel): bound on the H100 by the gather of the
+// paired rows, 0.043 ms by bytes at level 0 of the bench scene (about 7.6
+// pairs per valid row, of 26 offsets), so the body is kernel 1's: a
+// 256-thread block owns 128 out rows x all of Cout up to 128 and runs the
+// shared ring main loop (gather_gemm.cuh:ring_main_loop: 16-byte cp.async
+// rows into a 3-stage ring, one barrier per live (offset, 32-channel
+// chunk) step, warps skipping a step whose 32 rows have no pair). Only the
+// prologue is its own: it reads each off-centre offset's pair range in
+// the block (two 64-row tile_start entries), writes each pair's in row at
+// its out row of the block's (27, 128) row table (every other entry stays
+// "none", staged as a zero row) and marks the pair's 32-row group live at
+// the first pair of each group; the centre is the identity for the rows
+// below n. It never reads the neighbour map, and an empty range leaves the
+// offset dead at no further cost. On Hopper compaction buys only that
+// cheaper prologue: kernel 1 already skips missing rows and offsets, and
+// multiplying packed pairs would cost a scatter of the products through
+// shared memory, with its own barriers. The TPU kernel's one-hot row select,
+// per-offset buckets with dummy tails and two-block read windows were for
+// static shapes under Mosaic and have no counterpart. On valid rows the
+// result is bitwise kernel 1's on the same level.
+//
+// f32 (csr_conv_kernel): one 256-thread block owns TM out rows x TN
+// channels with f32 accumulators in registers (thread t: column t % TN,
+// every (256 / TN)-th row). Per offset it reads the tile's pair range,
+// stages the pairs' x rows packed into shared memory (padded with zero rows
+// to the product's row step), multiplies them by w[k] with a 4x4 register
+// tile per thread and writes the packed product to shared memory; each
+// thread then adds, for each of its rows that has a pair, the product row
+// of that pair (slot[row]).
+//
+// Both bodies take the offsets in order 0..26, the centre in its turn, and
+// each row at most once per offset: a fixed summation order, no atomics,
+// two runs bitwise equal.
 #include "gather_gemm.cuh"
 
 namespace {
@@ -176,107 +191,92 @@ csr_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// bf16 on the tensor cores: 128 rows x 64 channels per block. Warp w owns
-// column fragment w % 4 and the packed row fragments w / 4, w / 4 + 2, ...:
-// interleaved, so the fragments that hold pairs spread over all warps.
-template <typename T>   // T = __nv_bfloat16 (a template: one copy per .so)
+constexpr int kNone = -1;   // a row table entry with no pair
+
+// bf16: kernel 1's ring tile and main loop behind a prologue that reads the
+// pair tables (see the top).
+template <int NC>
 __global__ void __launch_bounds__(kThreads)
-csr_conv_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                   const int* __restrict__ pair_in,
-                   const int* __restrict__ pair_out,
-                   const int* __restrict__ tile_start,
-                   const uint8_t* __restrict__ valid,
-                   const float* __restrict__ scale,
-                   const float* __restrict__ shift,
-                   const T* __restrict__ residual, T* __restrict__ out, int n,
-                   int tiles, int cin, int cout, int relu) {
-  static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 only");
-  using namespace nvcuda;
-  constexpr int RS = kThreads / kTcN;   // 4
-  constexpr int NA = kTcM / RS;         // 32 accumulators per thread
-  // the packed product tile reuses the A/B staging after each offset's
-  // products
-  __shared__ __align__(128) unsigned char smem[kTcBytes];
-  __shared__ int pin[kTcM];
-  __shared__ int slot[kTcM];
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + kTcABytes);
-  float* Ps = reinterpret_cast<float*>(smem);
+csr_conv_ring_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w,
+                     const int* __restrict__ pair_in,
+                     const int* __restrict__ pair_out,
+                     const int* __restrict__ tile_start,
+                     const uint8_t* __restrict__ valid,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ shift,
+                     const __nv_bfloat16* __restrict__ residual,
+                     __nv_bfloat16* __restrict__ out, int n, int tiles,
+                     int cin, int cout, int relu) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int sidx[27 * kRingM];          // (27, 128) x rows
+  __shared__ int group_live[27 * kRingGroups];
+  __shared__ int range[2 * 26];   // [lo, hi) of each off-centre offset
+  __shared__ int live_k[27];
+  __shared__ int live_g[27];
+  __shared__ int n_live_s;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int cf = warp % 4;    // column fragment
-  const int rf0 = warp / 4;   // first row fragment; then every second one
-  const int col = tid % kTcN;
-  const int rbase = tid / kTcN;
-  const int row0 = blockIdx.x * kTcM;
-  const int col0 = blockIdx.y * kTcN;
-  const T zero = __float2bfloat16(0.f);
+  const int row0 = blockIdx.x * kRingM;
+  const int col0 = blockIdx.y * NC;
+  const int rows = n - row0 < kRingM ? n - row0 : kRingM;
 
-  float acc[NA];
-#pragma unroll
-  for (int j = 0; j < NA; ++j) acc[j] = 0.f;
-
-  for (int k = 0; k < 27; ++k) {
-    const int m = stage_pairs<kTcM>(k, pair_in, pair_out, tile_start, tiles,
-                                    row0, n, pin, slot);
-    if (m == 0) continue;
-    const int m16 = (m + 15) / 16 * 16;   // <= kTcM
-    AccFragment frag[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wmma::fill_fragment(frag[i], 0.f);
-    for (int c0 = 0; c0 < cin; c0 += kTcK) {
-      for (int e = tid; e < m16 * kTcK; e += kThreads) {
-        const int pr = e / kTcK;
-        const int kk = e % kTcK;
-        const int c = c0 + kk;
-        As[pr * kTcLdA + kk] = (pr < m && c < cin)
-                                   ? x[(size_t)pin[pr] * cin + c] : zero;
-      }
-      stage_weights_tc(Bs, w, k, c0, col0, cin, cout);
-      __syncthreads();
-      if (rf0 * 16 < m) {   // warp-uniform
-#pragma unroll
-        for (int ks = 0; ks < kTcK; ks += 16) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b;
-          wmma::load_matrix_sync(b, Bs + ks * kTcLdB + cf * 16, kTcLdB);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int rf = rf0 + 2 * i;
-            if (rf * 16 >= m) continue;
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a;
-            wmma::load_matrix_sync(a, As + rf * 16 * kTcLdA + ks, kTcLdA);
-            wmma::mma_sync(frag[i], a, b, frag[i]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int rf = rf0 + 2 * i;
-      if (rf * 16 >= m) continue;
-      wmma::store_matrix_sync(Ps + rf * 16 * kTcLdC + cf * 16, frag[i],
-                              kTcLdC, wmma::mem_row_major);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < NA; ++j) {
-      const int s = slot[rbase + RS * j];
-      if (s >= 0) acc[j] += Ps[s * kTcLdC + col];
-    }
-    __syncthreads();
+  for (int e = tid; e < 27 * kRingM; e += kThreads) {
+    const int r = e % kRingM;
+    sidx[e] = e / kRingM == 13 && r < rows ? row0 + r : kNone;
   }
-
-  const int co = col0 + col;
-  if (co >= cout) return;
-#pragma unroll
-  for (int j = 0; j < NA; ++j) {
-    const int i = row0 + rbase + RS * j;
-    if (i >= n) continue;
-    epilogue_store(acc[j], valid[i] ? 1.f : 0.f, (size_t)i * cout + co, co,
-                   scale, shift, residual, out, relu);
+  if (tid < 27 * kRingGroups)   // (offset, group) = (tid / 4, tid % 4)
+    group_live[tid] =
+        tid / kRingGroups == 13 && 32 * (tid % kRingGroups) < rows;
+  if (tid < 2 * 26) {   // the block's two 64-row tile_start entries
+    const int t0 = row0 / kTile;
+    const int t1 = t0 + kRingM / kTile < tiles ? t0 + kRingM / kTile : tiles;
+    range[tid] = tile_start[(size_t)(tid / 2) * tiles + (tid % 2 ? t1 : t0)];
   }
+  __syncthreads();
+  // slot j of offset ki: its pair lo + j, if any; unrolled, so that every
+  // thread's loads are in flight together
+  static_assert(26 * kRingM % kThreads == 0, "whole rounds");
+#pragma unroll
+  for (int i = 0; i < 26 * kRingM / kThreads; ++i) {
+    const int e = tid + i * kThreads;
+    const int ki = e / kRingM;
+    const int lo = range[2 * ki];
+    const int p = lo + e % kRingM;
+    if (p >= range[2 * ki + 1]) continue;
+    const int k = ki + (ki >= 13 ? 1 : 0);
+    const int r = pair_out[p] - row0;
+    sidx[k * kRingM + r] = pair_in[p];
+    // out rows ascend within the range: the group's first pair marks it
+    if (p == lo || (pair_out[p - 1] - row0) / 32 != r / 32)
+      group_live[k * kRingGroups + r / 32] = 1;
+  }
+  __syncthreads();
+  if (tid == 0) ring_live_lists(group_live, 27, live_k, live_g, &n_live_s);
+  __syncthreads();
+  ring_main_loop<NC>(smem, x, w, sidx, live_k, live_g, n_live_s, valid,
+                     scale, shift, residual, out, n, kNone, cin, cout, relu,
+                     row0, col0);
+}
+
+template <int NC>
+int launch_csr_ring(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                    const int* pair_in, const int* pair_out,
+                    const int* tile_start, const uint8_t* valid,
+                    const float* scale, const float* shift,
+                    const __nv_bfloat16* residual, __nv_bfloat16* out, int n,
+                    int tiles, int cin, int cout, int relu,
+                    cudaStream_t stream) {
+  constexpr int kBytes = RingTile<NC>::kSmemBytes;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      csr_conv_ring_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((n + kRingM - 1) / kRingM, (cout + NC - 1) / NC);
+  csr_conv_ring_kernel<NC><<<grid, kThreads, kBytes, stream>>>(
+      x, w, pair_in, pair_out, tile_start, valid, scale, shift, residual, out,
+      n, tiles, cin, cout, relu);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -300,11 +300,21 @@ extern "C" int csr_conv3_fwd(const void* x, const void* w,
   const float* hp = static_cast<const float*>(shift);
   if (is_bf16) {
     using T = __nv_bfloat16;
-    dim3 grid((n + kTcM - 1) / kTcM, (cout + kTcN - 1) / kTcN);
-    csr_conv_tc_kernel<T><<<grid, kThreads, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w), pi, po, ts, vp,
-        sp, hp, static_cast<const T*>(residual), static_cast<T*>(out), n,
-        tiles, cin, cout, relu);
+    const T* xp = static_cast<const T*>(x);
+    const T* wp = static_cast<const T*>(w);
+    const T* rp = static_cast<const T*>(residual);
+    T* op = static_cast<T*>(out);
+    if (cout <= 32)
+      return launch_csr_ring<32>(xp, wp, pi, po, ts, vp, sp, hp, rp, op, n,
+                                 tiles, cin, cout, relu, st);
+    if (cout <= 64)
+      return launch_csr_ring<64>(xp, wp, pi, po, ts, vp, sp, hp, rp, op, n,
+                                 tiles, cin, cout, relu, st);
+    if (cout <= 96)
+      return launch_csr_ring<96>(xp, wp, pi, po, ts, vp, sp, hp, rp, op, n,
+                                 tiles, cin, cout, relu, st);
+    return launch_csr_ring<128>(xp, wp, pi, po, ts, vp, sp, hp, rp, op, n,
+                                tiles, cin, cout, relu, st);
   } else if (cout % 64 == 0) {
     dim3 grid((n + 63) / 64, cout / 64);
     csr_conv_kernel<float, 64><<<grid, kThreads, 0, st>>>(

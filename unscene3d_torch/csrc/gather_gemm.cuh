@@ -35,11 +35,13 @@
 // and a 4x4 register tile per thread on the CUDA cores, no TF32.
 //
 // Every output element is summed in a fixed order (offsets in order, Cin
-// chunks in order): no atomics, two runs are bitwise equal. The weight
-// staging, the per-chunk products and the epilogue are device functions
-// that kernel 6 (csr_conv.cu) and kernel 9 (win_decompose.cu) share;
-// kernels 7 and 8 (brick_tile.cuh) share the epilogue, the accumulator
-// fragment and the 16-byte staging helpers.
+// chunks in order): no atomics, two runs are bitwise equal. Kernel 6
+// (csr_conv.cu) runs its bf16 body on the same main loop (ring_main_loop)
+// behind a prologue of its own that fills the row table from pair tables;
+// its f32 body shares the f32 weight staging and the epilogue. Kernel 9
+// (win_decompose.cu) shares the 128 x 64 tile helpers below; kernels 7 and
+// 8 (brick_tile.cuh) share the epilogue, the accumulator fragment and the
+// 16-byte staging helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -204,9 +206,9 @@ gather_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// The 128 x 64 tensor-core tile of kernels 6 and 9 (csr_conv.cu,
-// win_decompose.cu): each of the 8 warps owns a 32 x 32 sub-tile (2 x 2
-// fragments) and the accumulators go through shared memory to the epilogue.
+// The 128 x 64 tensor-core tile of kernel 9 (win_decompose.cu): each of
+// the 8 warps owns a 32 x 32 sub-tile (2 x 2 fragments) and the
+// accumulators go through shared memory to the epilogue.
 constexpr int kTcM = 128, kTcN = 64, kTcK = 32;
 constexpr int kTcLdA = kTcK + 8;   // bf16 leading dims: multiples of 8 and
 constexpr int kTcLdB = kTcN + 8;   // 32-byte aligned fragment rows
@@ -401,64 +403,52 @@ __device__ __forceinline__ void stage_rows(T* A, const T* __restrict__ x,
   }
 }
 
+// Block-uniform, by one thread: from the per-(offset, 32-row group) flags
+// group_live[kRingGroups * k + j] of K offsets, the live offsets in order
+// (live_k), their live groups as bits (live_g) and their count (*n_live).
+__device__ __forceinline__ void ring_live_lists(const int* group_live, int K,
+                                                int* live_k, int* live_g,
+                                                int* n_live) {
+  int n = 0;
+  for (int k = 0; k < K; ++k) {
+    int g = 0;
+    for (int j = 0; j < kRingGroups; ++j)
+      g |= group_live[kRingGroups * k + j] << j;
+    if (g) {
+      live_k[n] = k;
+      live_g[n] = g;
+      ++n;
+    }
+  }
+  *n_live = n;
+}
+
+// The bf16 ring main loop of kernels 1 (2's weighted case and 4's dx) and
+// 6, after the block's prologue: sidx is the block's table of x rows, row r
+// of offset k at sidx[k * 128 + r] (`sentinel`: none, staged as a zero
+// row), live_k / live_g its n_live live offsets in order with their live
+// 32-row groups. Walks the live (offset, 32-channel chunk) steps through
+// the 3-stage ring, then writes the block's 128 rows x NC columns from
+// (row0, col0) through the epilogue.
 template <int NC>
-__global__ void __launch_bounds__(kThreads)
-gather_gemm_ring_kernel(const __nv_bfloat16* __restrict__ x,
-                        const __nv_bfloat16* __restrict__ w,
-                        const int* __restrict__ idx,
-                        const uint8_t* __restrict__ valid,
-                        const float* __restrict__ scale,
-                        const float* __restrict__ shift,
-                        const __nv_bfloat16* __restrict__ residual,
-                        __nv_bfloat16* __restrict__ out, int K, int n_out,
-                        int sentinel, int cin, int cout, int relu) {
+__device__ __forceinline__ void ring_main_loop(
+    unsigned char* smem, const __nv_bfloat16* __restrict__ x,
+    const __nv_bfloat16* __restrict__ w, const int* sidx, const int* live_k,
+    const int* live_g, int n_live, const uint8_t* __restrict__ valid,
+    const float* __restrict__ scale, const float* __restrict__ shift,
+    const __nv_bfloat16* __restrict__ residual,
+    __nv_bfloat16* __restrict__ out, int n_out, int sentinel, int cin,
+    int cout, int relu, int row0, int col0) {
   using Tile = RingTile<NC>;
   using T = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int sidx[kRingMaxK * kRingM];          // (K, 128) indices
-  __shared__ int group_live[kRingMaxK * kRingGroups];
-  __shared__ int live_k[kRingMaxK];    // the live offsets, in order
-  __shared__ int live_g[kRingMaxK];    // their 32-row groups, a bit each
-  __shared__ int n_live_s;
-
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int group = warp / Tile::kWC;              // the warp's 32 rows
   const int wr = 32 * group;
   const int wc = (warp % Tile::kWC) * (NC / Tile::kWC);
-  const int row0 = blockIdx.x * kRingM;
-  const int col0 = blockIdx.y * NC;
-
-  for (int e = tid; e < K * kRingM; e += kThreads) {
-    const int i = row0 + e % kRingM;
-    sidx[e] = i < n_out ? idx[(size_t)(e / kRingM) * n_out + i] : sentinel;
-  }
-  __syncthreads();
-  if (tid < K * kRingGroups) {   // (offset, group) = (tid / 4, tid % 4)
-    int any = 0;
-    for (int j = 0; j < 32; ++j)   // rotated start: no bank conflict
-      any |= sidx[32 * tid + (j + tid) % 32] != sentinel;
-    group_live[tid] = any;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int n = 0;
-    for (int k = 0; k < K; ++k) {
-      int g = 0;
-      for (int j = 0; j < kRingGroups; ++j)
-        g |= group_live[kRingGroups * k + j] << j;
-      if (g) {
-        live_k[n] = k;
-        live_g[n] = g;
-        ++n;
-      }
-    }
-    n_live_s = n;
-  }
-  __syncthreads();
 
   const int chunks = (cin + kRingK - 1) / kRingK;
-  const int steps = n_live_s * chunks;
+  const int steps = n_live * chunks;
   const bool vec_a = cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool vec_w =
       cout % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
@@ -520,6 +510,49 @@ gather_gemm_ring_kernel(const __nv_bfloat16* __restrict__ x,
                    (size_t)i * cout + co, co, scale, shift, residual, out,
                    relu);
   }
+}
+
+// Kernel 1's prologue: the tile's (K, 128) slice of idx, then which 32-row
+// groups of each offset hold a neighbour.
+template <int NC>
+__global__ void __launch_bounds__(kThreads)
+gather_gemm_ring_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ w,
+                        const int* __restrict__ idx,
+                        const uint8_t* __restrict__ valid,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ shift,
+                        const __nv_bfloat16* __restrict__ residual,
+                        __nv_bfloat16* __restrict__ out, int K, int n_out,
+                        int sentinel, int cin, int cout, int relu) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int sidx[kRingMaxK * kRingM];          // (K, 128) indices
+  __shared__ int group_live[kRingMaxK * kRingGroups];
+  __shared__ int live_k[kRingMaxK];    // the live offsets, in order
+  __shared__ int live_g[kRingMaxK];    // their 32-row groups, a bit each
+  __shared__ int n_live_s;
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * kRingM;
+  const int col0 = blockIdx.y * NC;
+
+  for (int e = tid; e < K * kRingM; e += kThreads) {
+    const int i = row0 + e % kRingM;
+    sidx[e] = i < n_out ? idx[(size_t)(e / kRingM) * n_out + i] : sentinel;
+  }
+  __syncthreads();
+  if (tid < K * kRingGroups) {   // (offset, group) = (tid / 4, tid % 4)
+    int any = 0;
+    for (int j = 0; j < 32; ++j)   // rotated start: no bank conflict
+      any |= sidx[32 * tid + (j + tid) % 32] != sentinel;
+    group_live[tid] = any;
+  }
+  __syncthreads();
+  if (tid == 0) ring_live_lists(group_live, K, live_k, live_g, &n_live_s);
+  __syncthreads();
+  ring_main_loop<NC>(smem, x, w, sidx, live_k, live_g, n_live_s, valid,
+                     scale, shift, residual, out, n_out, sentinel, cin, cout,
+                     relu, row0, col0);
 }
 
 template <int NC>

@@ -12,8 +12,9 @@ that are used only when an input requires grad (training):
   * k3: dx = the conv of gm with flip-transposed weights and dW = 27 gathered
     GEMMs, kernels 4 and 5 (ops/conv3.py:conv3_bwd / conv3_dw);
   * k3 at a CSR level: dx = kernel 6 over gm with flip-transposed weights
-    and the same pair tables, dW = `csr_dw`, per-offset matmuls over the
-    exact pair ranges in plain torch (plain XLA in the JAX package);
+    and the same pair tables; dW = kernel 5 over the level's neighbour map,
+    the same function as the JAX package's per-offset products over the
+    pairs (plain XLA there), since the pairs are built from that map;
   * down2: dx = an up2 conv with W^T (kernel 2 over the fine level's
     `up_idx`), dW = one parent gather + 8 masked GEMMs in plain torch;
   * up2: dx = a down2 conv with W^T (kernel 2 over the coarse level's
@@ -29,7 +30,7 @@ import torch
 
 from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_dw, conv3_fwd,
                                        flip_transpose, fold_bias)
-from unscene3d_torch.ops.csr_conv import csr_conv3_fwd, csr_dw
+from unscene3d_torch.ops.csr_conv import csr_conv3_fwd
 from unscene3d_torch.ops.k_apply import k_apply
 from unscene3d_torch.ops.sparse_graph import LevelGraph
 
@@ -67,8 +68,11 @@ class _Conv3(torch.autograd.Function):
 
 
 class _CsrConv3(torch.autograd.Function):
-    """k3 conv without epilogue at a level with pair tables: forward and dx
-    kernel 6, dW plain torch (csr_conv.py:_csr_bwd)."""
+    """k3 conv without epilogue at a level with pair tables
+    (csr_conv.py:csr_conv3 and _csr_bwd): forward and dx kernel 6, dW kernel
+    5 over `level.nbr_idx`. Requires `level.csr ==
+    build_csr_graph(level.nbr_idx)`, as the collator builds it: then kernel
+    5's dW is the reference's dW over the pairs (`csr_dw`)."""
 
     @staticmethod
     def forward(ctx, x, w, level):
@@ -84,7 +88,7 @@ class _CsrConv3(torch.autograd.Function):
         dx = None
         if ctx.needs_input_grad[0]:   # not the stem's input features
             dx = csr_conv3_fwd(gm, flip_transpose(w), lv.csr, lv.valid)
-        return dx, csr_dw(x, gm, lv.csr).to(w.dtype), None
+        return dx, conv3_dw(x, gm, lv.nbr_idx).to(w.dtype), None
 
 
 def sparse_conv3(x, w, level: LevelGraph, bias=None, scale=None, shift=None,

@@ -15,17 +15,20 @@ range. The ranges are ragged and exact: the per-offset buckets, dummy tails
 and read windows of the TPU tables were for static shapes under Mosaic and
 have no counterpart. Padding rows of x need not be zero: no pair reads one.
 
-Bound on the H100: the gather of the paired x rows, as kernel 1, but the
-products shrink with the pairs too: the CUDA kernel (csrc/csr_conv.cu)
-packs a tile's paired rows, multiplies the packed rows by w[k] and adds each
-product row into the accumulator row of its out row.
+Bound on the H100: the gather of the paired x rows, as kernel 1. The bf16
+CUDA kernel (csrc/csr_conv.cu) is kernel 1's ring main loop behind a
+prologue that reads the pair tables into the block's row table, so on valid
+rows it is bitwise kernel 1; the f32 kernel packs a tile's paired rows,
+multiplies them by w[k] and adds each product row into its out row.
 
 `csr_conv3_fwd` runs the plain twin for CPU tensors only; for a CUDA tensor
 it launches the kernel or raises, and `csr_conv3_fwd.launches` counts the
 launches. The backward (ops/conv_ops.py:_CsrConv3) is the same kernel over
-the masked output gradient with flip-transposed weights for dx, and
-`csr_dw` for dW: per offset one f32 matmul over the exact pair range, plain
-torch as it is plain XLA in the JAX package.
+the masked output gradient with flip-transposed weights for dx, and kernel
+5 (ops/conv3.py:conv3_dw) over the level's neighbour map for dW: the pairs
+are that map's hits, so it is the same function. `csr_dw` is the plain copy
+of the JAX package's dW over the pairs (plain XLA there): the tests and
+`chip_smoke.py` hold kernel 5 against it; no path on the card calls it.
 """
 
 from __future__ import annotations
@@ -190,11 +193,12 @@ csr_conv3_fwd.launches = 0
 
 
 def csr_dw(x, gm, csr: CsrGraph):
-    """dW of the CSR conv (unscene3d_tpu/ops/csr_conv.py:321-335): per
-    offset x[pair_in]^T @ gm[pair_out] over the offset's exact pair range,
-    x^T @ gm for the centre, in f32, stacked in offset order. x: (N, Cin),
-    gm: (N, Cout) masked to valid rows. Returns (27, Cin, Cout) f32. The
-    ranges come from the host-side counts, so nothing syncs."""
+    """Plain copy of the JAX package's dW of the CSR conv
+    (unscene3d_tpu/ops/csr_conv.py:321-335): per offset x[pair_in]^T @
+    gm[pair_out] over the offset's exact pair range, x^T @ gm for the
+    centre, in f32, stacked in offset order. x: (N, Cin), gm: (N, Cout)
+    masked to valid rows. Returns (27, Cin, Cout) f32. The reference that
+    kernel 5, the CSR levels' dW on every path, is held against."""
     xf = x.float()
     gf = gm.float()
     pin, pout = csr.pair_in.long(), csr.pair_out.long()
