@@ -3,7 +3,8 @@ against its plain twin at main-path shapes, drives the eval path through
 `unscene3d_torch.inference` on the bench scene and the train path through
 `unscene3d_torch.train.loop` on bench.py's batch-8 train batch, both in the
 default configuration (kernels 1-5) and with `csr_levels=(0, 1, 2)` (kernel
-6 at those levels), the brick conv engine (kernel 7) on the bench scene's
+6 at those levels), the batch-8 train step also in f32 (the trainer's
+default dtype), the brick conv engine (kernel 7) on the bench scene's
 level 0, the two prototype entry points `unscene3d_torch.bench.proto_*`
 (kernels 8 and 9) at that level, and the pseudo-mask half: the batched NCut
 row (64 scenes x 400 segments x 96 features) and the bench scene through
@@ -41,6 +42,7 @@ TRAIN_BATCH = 8
 TRAIN_STEPS = 5          # timed, after one warm-up step
 CSR_LEVELS = (0, 1, 2)   # the csr012 variant of benchmarks/profile_fwd.py
 CSR_TRAIN_STEPS = 3      # timed csr_levels steps, after one warm-up step
+F32_TRAIN_STEPS = 3      # timed f32 steps, after one warm-up step
 # published peaks of one H100 SXM (dense): bytes/s of HBM3 and FLOP/s by
 # the type of the products (bf16 tensor cores; f32 outside them)
 PEAK_BYTES = 3.35e12
@@ -266,12 +268,19 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
     return out
 
 
-def phase_kernels(dev, batch):
+def phase_kernels(dev, batch, csr_batch):
+    """Kernels 1-3 against their twins at the bench scene's shapes; kernel
+    1 at level 0 also against kernel 6 on the same inputs over the pair
+    tables of csr_batch (the same scene collated with csr_levels), bitwise
+    on valid rows in both dtypes."""
     from unscene3d_torch.ops.conv3 import conv3_fwd, conv3_fwd_plain
+    from unscene3d_torch.ops.csr_conv import csr_conv3_fwd
     from unscene3d_torch.ops.k_apply import k_apply, k_apply_plain
     from unscene3d_torch.ops.segment_pool import segment_sum, segment_sum_plain
 
     L = [lv.to(dev) for lv in batch.graph.levels]
+    csr = {lv: level.csr.to(dev) for lv, level in
+           enumerate(csr_batch.graph.levels) if level.csr is not None}
     log("kernels vs plain twins at the bench scene's shapes "
         f"(rows per level {[lv.num_padded for lv in L]})")
     g = torch.Generator().manual_seed(0)
@@ -289,6 +298,10 @@ def phase_kernels(dev, batch):
             if epi:
                 kw["residual"] = torch.randn(n, cout, generator=g).to(dev,
                                                                       dtype)
+            k6 = None
+            if lv in csr:
+                k6 = ("csr_conv3", lambda: csr_conv3_fwd(x, w, csr[lv],
+                                                         lvl.valid, **kw))
             res["conv3_fwd"][(lv, cin, cout, dtype)] = _compare(
                 f"conv3_fwd L{lv} {cin}->{cout}"
                 + (" +scale/shift+res+relu" if epi else " +scale/shift+relu"),
@@ -298,7 +311,8 @@ def phase_kernels(dev, batch):
                 work=(nbytes(x, w, lvl.nbr_idx, lvl.valid, kw["scale"],
                              kw["shift"], kw.get("residual"))
                       + n * cout * x.element_size(),
-                      2 * hits(lvl.nbr_idx) * cin * cout, dtype))
+                      2 * hits(lvl.nbr_idx) * cin * cout, dtype),
+                other=k6, equal_rows=lvl.valid)
         # k2 down conv L0 -> L1 (conv1p1s2, 32 -> 32)
         x = torch.randn(L[0].num_padded, 32, generator=g).to(dev, dtype)
         w = (torch.randn(8, 32, 32, generator=g) / 32 ** 0.5).to(dev, dtype)
@@ -538,12 +552,19 @@ def train_batch(csr_levels=()):
     return batch
 
 
-def phase_train_kernels(dev, batch):
-    """Kernels 4 and 5 against their twins at the train batch's shapes."""
+def phase_train_kernels(dev, batch, csr_batch):
+    """Kernels 4 and 5 against their twins at the train batch's shapes; at
+    level 0 kernel 4's dx also against kernel 6 as dx on the same inputs,
+    over the pair tables of csr_batch (the same batch collated with
+    csr_levels), bitwise on valid rows in both dtypes."""
     from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_bwd_plain,
-                                           conv3_dw, conv3_dw_plain)
+                                           conv3_dw, conv3_dw_plain,
+                                           flip_transpose)
+    from unscene3d_torch.ops.csr_conv import csr_conv3_fwd
 
     L = [lv.to(dev) for lv in batch.graph.levels]
+    csr = {lv: level.csr.to(dev) for lv, level in
+           enumerate(csr_batch.graph.levels) if level.csr is not None}
     log("backward kernels vs plain twins at the train batch's shapes")
     g = torch.Generator().manual_seed(1)
     res = {"conv3_bwd": {}, "conv3_dw": {}}
@@ -558,12 +579,17 @@ def phase_train_kernels(dev, batch):
                   * lvl.valid[:, None]).to(dtype)
             args = (x, gm, w, lvl.nbr_idx, lvl.valid)
             pairs = hits(lvl.nbr_idx)
+            k6 = None
+            if lv in csr:
+                k6 = ("csr_conv3 as dx", lambda: csr_conv3_fwd(
+                    gm, flip_transpose(w), csr[lv], lvl.valid))
             res["conv3_bwd"][(lv, cin, cout, dtype)] = _compare(
                 f"conv3_bwd (dx + dW) L{lv} {cin}->{cout}, dx", dtype,
                 lambda: conv3_bwd(*args)[0],
                 lambda: conv3_bwd_plain(*args)[0],
                 work=(nbytes(x, x, gm, w, w, lvl.nbr_idx, lvl.valid),
-                      4 * pairs * cin * cout, dtype))
+                      4 * pairs * cin * cout, dtype),
+                other=k6, equal_rows=lvl.valid)
             res["conv3_dw"][(lv, cin, cout, dtype)] = _compare(
                 f"conv3_dw L{lv} {cin}->{cout} (f32 out)", dtype,
                 lambda: conv3_dw(x, gm, lvl.nbr_idx),
@@ -571,7 +597,7 @@ def phase_train_kernels(dev, batch):
                 tol=DW_TOL[dtype],
                 work=(nbytes(x, gm, lvl.nbr_idx) + 27 * cin * cout * 4,
                       2 * pairs * cin * cout, dtype))
-            del x, w, gm, args
+            del x, w, gm, args, k6
     return res
 
 
@@ -632,7 +658,7 @@ def phase_train(dev, batch):
     return launches, trainer, gen
 
 
-def phase_train_repeat(dev, trainer, batch):
+def phase_train_repeat(dev, trainer, batch, label="bf16"):
     """Whole-step bitwise repeatability of training: two
     Trainer.train_step calls from the same state (params, AdamW moments and
     count, BN running stats), the same batch and a generator seeded alike;
@@ -687,7 +713,7 @@ def phase_train_repeat(dev, trainer, batch):
     first, second = one_step(), one_step()
     diff = differing(first, second)
     verdict = "bitwise EQUAL" if not diff else "DIFFERENT"
-    log(f"train step repeatability (bf16, batch {TRAIN_BATCH}, same state, "
+    log(f"train step repeatability ({label}, batch {TRAIN_BATCH}, same state, "
         f"batch and generator seed): {verdict}"
         f" ({len(first[0])} gradients, {len(first[1])} state tensors; "
         f"steps {first[2]:.1f} / {second[2]:.1f} ms)"
@@ -714,12 +740,59 @@ def phase_train_repeat(dev, trainer, batch):
     return result
 
 
+def _timed_steps(trainer, batch, gen, n_steps, per_step, what):
+    """n_steps train steps (the first a warm-up), each with finite losses;
+    the launch counts read around exactly these steps must be per_step
+    times n_steps. Returns (ms of each step, launches, peak device
+    bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cnt = reset_counters()
+    times = []
+    for step in range(n_steps):
+        t0 = time.perf_counter()
+        losses = trainer.train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        for key in ("loss_ce", "loss_mask", "loss_dice", "total"):
+            if not torch.isfinite(losses[key]).all():
+                raise AssertionError(f"{what} train step {step}: {key} not "
+                                     "finite")
+        log(f"  {what} step {step}: {times[-1]:.1f}ms total="
+            f"{losses['total'].item():.4f}")
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    log(f"{what} train path: {n_steps} steps, launches {launches}")
+    for k, per in per_step.items():
+        if launches[k] != per * n_steps:
+            raise AssertionError(f"{k}: {launches[k]} launches, expected "
+                                 f"{per} per {what} train step x {n_steps}")
+    return times, launches, torch.cuda.max_memory_allocated()
+
+
+def _trace_step(trainer, batch, gen, what):
+    """One more train step under torch.profiler (device tracing): busy
+    time, idle share, the top kernels and the port's kernels by body."""
+    from torch.profiler import ProfilerActivity
+
+    rows, busy, window = _traced(lambda: trainer.train_step(batch, gen),
+                                 [ProfilerActivity.CUDA], reps=1)
+    if not rows:
+        log(f"{what} train profile: no device time in the trace (not "
+            "measured)")
+        return
+    log(f"{what} train profile (device tracing): device busy {busy:.1f}ms "
+        f"of a {window:.1f}ms traced step, idle share "
+        f"{1 - busy / window:.1%}; {sum(r[2] for r in rows)} device ops per "
+        "step")
+    for ms, name, n in rows[:12]:
+        log(f"  {ms:8.2f}ms {100 * ms / busy:5.1f}%  x{n:<4d} {name[:90]}")
+    _family_shares(rows, busy, f"{what} train step")
+
+
 def phase_train_profile(trainer, batch, gen):
     """One more bf16 step split by part (CUDA events on the stream: forward,
     matcher, criterion, backward, AdamW + BN update), then a step under
     torch.profiler (device tracing) for the idle share and the kernels."""
-    from torch.profiler import ProfilerActivity
-
     model, crit = trainer.model, trainer.criterion
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
     ev[0].record()
@@ -746,24 +819,15 @@ def phase_train_profile(trainer, batch, gen):
         f"{name} {ev[i].elapsed_time(ev[i + 1]):.1f}ms"
         for i, name in enumerate(parts)))
     del out, losses, grads
-    rows, busy, window = _traced(lambda: trainer.train_step(batch, gen),
-                                 [ProfilerActivity.CUDA], reps=1)
-    if not rows:
-        log("train profile: no device time in the trace (not measured)")
-        return
-    log(f"train profile (device tracing): device busy {busy:.1f}ms of a "
-        f"{window:.1f}ms traced step, idle share {1 - busy / window:.1%}; "
-        f"{sum(r[2] for r in rows)} device ops per step")
-    for ms, name, n in rows[:12]:
-        log(f"  {ms:8.2f}ms {100 * ms / busy:5.1f}%  x{n:<4d} {name[:90]}")
-    _family_shares(rows, busy, "train step")
+    _trace_step(trainer, batch, gen, "bf16")
 
 def phase_csr_kernels(dev, batch, tbatch):
     """Kernel 6 against its twin and against kernel 1 on the same inputs
-    (the same function; in bf16 bitwise on valid rows, since the two share
-    the ring main loop), at the shapes the csr_levels paths give it: the
-    bench scene's levels for the forward, the train batch's level 0 for dx
-    (kernel 6 over gm with flip-transposed weights). There kernel 5, the
+    (the same function; bitwise on valid rows in both dtypes, since the two
+    share the ring main loop and its tile), at the shapes the csr_levels
+    paths give it: the bench scene's levels for the forward, the train
+    batch's level 0 for dx (kernel 6 over gm with flip-transposed
+    weights). There kernel 5, the
     csr_levels dW, is held against csr_dw (the reference's dW over the
     pairs, plain torch) and both are timed."""
     from unscene3d_torch.ops.conv3 import (conv3_dw, conv3_fwd,
@@ -810,7 +874,7 @@ def phase_csr_kernels(dev, batch, tbatch):
                           kw.get("residual")),
                 other=("conv3_fwd", lambda: conv3_fwd(x, w, lvl.nbr_idx,
                                                       lvl.valid, **kw)),
-                equal_rows=lvl.valid if dtype == torch.bfloat16 else None)
+                equal_rows=lvl.valid)
         # the backward at the train batch's level 0, 128 -> 96
         lvl = tbatch.graph.levels[0].to(dev)
         n, cin, cout = lvl.num_padded, 128, 96
@@ -827,7 +891,7 @@ def phase_csr_kernels(dev, batch, tbatch):
             work=work(gm, wf, lvl, cin),
             other=("conv3_fwd", lambda: conv3_fwd(gm, wf, lvl.nbr_idx,
                                                   lvl.valid)),
-            equal_rows=lvl.valid if dtype == torch.bfloat16 else None)
+            equal_rows=lvl.valid)
         dw, dw5 = csr_dw(x, gm, lvl.csr), conv3_dw(x, gm, lvl.nbr_idx)
         err = (dw - dw5).abs().max().item() / dw5.abs().max().item()
         dw_ms = cuda_ms(lambda: csr_dw(x, gm, lvl.csr), reps=5)
@@ -1045,46 +1109,22 @@ def phase_train_csr(dev, batch):
     step with CUDA events around every dW of the CSR levels (kernel 5) for
     its share of the step, and one traced step for the device time by
     kernel."""
-    from torch.profiler import ProfilerActivity
-
     from unscene3d_torch.ops import conv_ops
     from unscene3d_torch.train.loop import build_trainer
 
     trainer = build_trainer(torch.bfloat16, seed=0, device=dev)
     before = [p.detach().clone() for p in trainer.params]
     gen = torch.Generator(device=dev).manual_seed(0)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cnt = reset_counters()
-    times = []
     n_steps = 1 + CSR_TRAIN_STEPS
-    for step in range(n_steps):
-        t0 = time.perf_counter()
-        losses = trainer.train_step(batch, gen)
-        torch.cuda.synchronize()
-        times.append(1e3 * (time.perf_counter() - t0))
-        for key in ("loss_ce", "loss_mask", "loss_dice", "total"):
-            if not torch.isfinite(losses[key]).all():
-                raise AssertionError(f"csr_levels train step {step}: {key} "
-                                     "not finite")
-        log(f"  csr_levels step {step}: {times[-1]:.1f}ms total="
-            f"{losses['total'].item():.4f}")
-    launches = {k: fn.launches for k, fn in cnt.items()}
-    peak = torch.cuda.max_memory_allocated()
-    log(f"csr_levels={CSR_LEVELS} train path: {n_steps} steps, launches "
-        f"{launches}")
-    for k, per in PER_TRAIN_STEP_CSR.items():
-        if launches[k] != per * n_steps:
-            raise AssertionError(f"{k}: {launches[k]} launches, expected "
-                                 f"{per} per csr_levels train step x "
-                                 f"{n_steps}")
+    times, launches, peak = _timed_steps(trainer, batch, gen, n_steps,
+                                         PER_TRAIN_STEP_CSR, "csr_levels")
     unchanged = [n for a, (n, p) in zip(before,
                                         trainer.model.named_parameters())
                  if torch.equal(a, p)]
     if unchanged != ["backbone.final.bias"]:
         raise AssertionError(f"csr_levels: params unchanged after {n_steps} "
                              f"steps: {unchanged}")
-    phase_train_repeat(dev, trainer, batch)
+    phase_train_repeat(dev, trainer, batch, f"bf16, csr_levels={CSR_LEVELS}")
     events = []
     plain_dw = conv_ops.conv3_dw
 
@@ -1116,18 +1156,33 @@ def phase_train_csr(dev, batch):
         f"{peak / 2**30:.2f} GiB; dW of the CSR levels (kernel 5) "
         f"{len(events)} calls, {dw_ms:.1f}ms of a {step_ms:.1f}ms step "
         f"({dw_ms / step_ms:.1%})")
-    rows, busy, window = _traced(lambda: trainer.train_step(batch, gen),
-                                 [ProfilerActivity.CUDA], reps=1)
-    if not rows:
-        log("csr_levels train profile: no device time in the trace (not "
-            "measured)")
-        return launches
-    log(f"csr_levels train profile (device tracing): device busy "
-        f"{busy:.1f}ms of a {window:.1f}ms traced step, idle share "
-        f"{1 - busy / window:.1%}; {sum(r[2] for r in rows)} device ops")
-    for ms, name, n in rows[:12]:
-        log(f"  {ms:8.2f}ms {100 * ms / busy:5.1f}%  x{n:<4d} {name[:90]}")
-    _family_shares(rows, busy, "csr_levels train step")
+    _trace_step(trainer, batch, gen, "csr_levels")
+    return launches
+
+
+def phase_train_f32(dev, batch):
+    """The train path in build_trainer's default dtype, f32 (kernels 1, 2,
+    4 and 5 in f32; the FMA tile of the ring main loop): the batch-8 train
+    batch, one warm-up step and F32_TRAIN_STEPS timed ones, launch counts
+    read around exactly these steps; two steps from one state bitwise equal
+    (phase_train_repeat); one traced step for the device time by kernel
+    body."""
+    from unscene3d_torch.train.loop import build_trainer
+
+    t_phase = time.perf_counter()
+    trainer = build_trainer(torch.float32, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times, launches, peak = _timed_steps(trainer, batch, gen,
+                                         1 + F32_TRAIN_STEPS, PER_TRAIN_STEP,
+                                         "f32")
+    warm = statistics.median(times[1:])
+    log(f"train f32, batch {TRAIN_BATCH}: first step {times[0]:.1f}ms, warm "
+        f"median of {F32_TRAIN_STEPS} {warm:.1f}ms (min {min(times[1:]):.1f},"
+        f" max {max(times[1:]):.1f}) = {1e3 * TRAIN_BATCH / warm:.2f} "
+        f"scenes/s; peak device memory {peak / 2**30:.2f} GiB")
+    phase_train_repeat(dev, trainer, batch, "f32")
+    _trace_step(trainer, batch, gen, "f32")
+    log(f"phase train_f32: {time.perf_counter() - t_phase:.1f}s")
     return launches
 
 
@@ -1627,7 +1682,7 @@ def main() -> int:
             csr_levels=csr_levels)([scene0])
         log(f"bench scene collate (csr_levels={csr_levels}): "
             f"{time.perf_counter() - t0:.2f}s")
-    res = phase_kernels(dev, batches[()])
+    res = phase_kernels(dev, batches[()], batches[CSR_LEVELS])
     launches = {}
     launches["eval"], preds, served = phase_slice(dev)
     phase_profile(preds, served)
@@ -1645,14 +1700,17 @@ def main() -> int:
 
     tbatch = train_batch()
     tbatch_csr = train_batch(CSR_LEVELS)
-    res.update(phase_train_kernels(dev, tbatch))
+    res.update(phase_train_kernels(dev, tbatch, tbatch_csr))
     res["csr_conv3"], dw_vs_csr = phase_csr_kernels(dev, batches[CSR_LEVELS],
                                                     tbatch_csr)
     tbatch = tbatch.to(dev)
     launches["train"], trainer, gen = phase_train(dev, tbatch)
     phase_train_repeat(dev, trainer, tbatch)
     phase_train_profile(trainer, tbatch, gen)
-    del trainer, tbatch
+    del trainer
+    torch.cuda.empty_cache()
+    launches["train_f32"] = phase_train_f32(dev, tbatch)
+    del tbatch
     torch.cuda.empty_cache()
     launches["train_csr"] = phase_train_csr(dev, tbatch_csr.to(dev))
     del tbatch_csr

@@ -13,7 +13,9 @@
 // WMMA pointer (the card needs 32 bytes) is reported by the next
 // cudaGetLastError, as cudaErrorMisalignedAddress. Of the warp intrinsics
 // only __ballot_sync is emulated (every lane of the warp must call it), with
-// __popc beside it.
+// __popc beside it. The device reports 4 SMs (cudaDeviceGetAttribute), so
+// that a small level takes the narrower f32 column tiles a small grid gets
+// on the card.
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -37,7 +39,7 @@ inline dim3 blockDim, gridDim;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__ __restrict
 #define __shared__ static
 
@@ -46,6 +48,17 @@ typedef int cudaError_t;
 constexpr cudaError_t cudaSuccess = 0;
 constexpr cudaError_t cudaErrorMisalignedAddress = 716;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+// a card of 4 SMs: a level of two 128-row tiles takes narrower f32 column
+// tiles where Cout fits one
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 4;
+  return cudaSuccess;
+}
 inline std::atomic<int> g_emu_error{0};
 inline cudaError_t cudaGetLastError() { return g_emu_error.exchange(0); }
 template <class F>
@@ -62,6 +75,13 @@ inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
+struct alignas(8) float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 
 // cp.async, per thread: a copy lands as late as the card allows, when
 // __pipeline_wait_prior(n) leaves fewer than n+1 of the thread's committed

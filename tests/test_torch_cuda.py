@@ -169,9 +169,10 @@ def test_conv3_bwd_matches_twin(cuda, levels, dtype, lv, cin, cout):
 def test_csr_conv3_matches_twin_and_kernel_1(cuda, levels, dtype, lv, cin,
                                              cout):
     """Kernel 6 against its twin and against kernel 1 on the same inputs
-    (the same function), with noise in x's padding rows; in bf16 the two
-    share the ring main loop and are bitwise equal on valid rows. The
-    levels' row counts are multiples of 128 but not all of 256."""
+    (the same function), with noise in x's padding rows; the two share the
+    ring main loop and its tile of the dtype and are bitwise equal on valid
+    rows. The levels' row counts are multiples of 128 but not all of
+    256."""
     lvl = levels[lv].to(cuda)
     csr = build_csr_graph(levels[lv].nbr_idx.numpy()).to(cuda)
     n = lvl.num_padded
@@ -189,8 +190,7 @@ def test_csr_conv3_matches_twin_and_kernel_1(cuda, levels, dtype, lv, cin,
     _close(got, csr_conv3_fwd_plain(x, w, csr, lvl.valid, **kw), dtype)
     ref1 = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw)
     _close(got, ref1, dtype)
-    if dtype == torch.bfloat16:
-        assert torch.equal(got[lvl.valid], ref1[lvl.valid])
+    assert torch.equal(got[lvl.valid], ref1[lvl.valid])
 
 
 def _thin_level(level):

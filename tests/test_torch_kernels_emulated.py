@@ -11,9 +11,11 @@ C++20 compiler is present.
 Tolerances, relative to max|twin|: f32 1e-5 (summation order only); bf16
 8e-3 (an output may round one bf16 ulp apart). The dW kernel's output is f32
 in both dtypes (exact products summed in f32): 1e-5. Kernels 6 and 7 are
-also held against kernel 1's twin: the same function from other tables; in
-bf16 kernel 6 runs kernel 1's ring main loop and equals emulated kernel 1
-bitwise on valid rows.
+also held against kernel 1's twin: the same function from other tables;
+kernel 6 runs kernel 1's ring main loop and tile and equals emulated kernel
+1 bitwise on valid rows in both dtypes. In f32, kernels 1, 4 (dx) and 6 are
+held bitwise to a serial fmaf chain (tests/cuda_emu/serial_ref.cu), the
+summation order they promise.
 Kernels 8 and 9 are emulated in tests/test_torch_kernels_emulated_proto.py (a
 file of its own, so that the two run on different workers).
 """
@@ -60,7 +62,8 @@ def emu(tmp_path_factory):
              f"-I{d}"]
     objs = []
     for path in (glob.glob(os.path.join(_build.CSRC, "*.cu*"))
-                 + [os.path.join(EMU_DIR, "shim_checks.cu")]):
+                 + [os.path.join(EMU_DIR, "shim_checks.cu"),
+                    os.path.join(EMU_DIR, "serial_ref.cu")]):
         src = _LAUNCH.sub(
             lambda m: f"emu_launch({m.group(2)}, [&] {{ {m.group(1)}"
                       f"({m.group(3)}); }});", open(path).read())
@@ -89,6 +92,9 @@ def emu(tmp_path_factory):
     lib.emu_wmma_col_major.restype = ctypes.c_int
     lib.emu_ballot.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.emu_ballot.restype = ctypes.c_int
+    lib.serial_gather_gemm_f32.argtypes = ([ctypes.c_void_p] * 8
+                                           + [ctypes.c_int] * 6)
+    lib.serial_gather_gemm_f32.restype = ctypes.c_int
     return lib
 
 
@@ -127,26 +133,41 @@ def _dead_tiles(lvl, rows=128):
     return int((~hit.view(-1, rows).any(1)).sum())
 
 
+def _tables(levels, lv, cin):
+    """(neighbour map, validity, rows, a seeded generator) of level lv; lv
+    "ragged": the 200-row map of _ragged_map, where offset 0 has a
+    neighbour in the first 32-row group and none in the second."""
+    if lv == "ragged":
+        nbr, g = _ragged_map()
+        n = nbr.shape[1]
+        nbr[0, 32:64] = n - 1
+        assert (nbr[0, :32] != n - 1).any()
+        return nbr, torch.arange(n) < n - 1, n, g
+    lvl = levels[lv]
+    return (lvl.nbr_idx, lvl.valid, lvl.num_padded,
+            torch.Generator().manual_seed(lv * 100 + cin))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lv,cin,cout,epi", [
     (1, 3, 32, "scale_relu"),        # narrow stem: scalar row staging
     (2, 32, 32, "all"),              # + residual
-    (2, 64, 96, "none"),             # Cout 96 in one bf16 tile
+    (2, 64, 96, "none"),             # Cout 96 in one tile
     (3, 40, 64, "all"),              # ragged Cin chunk, a dead row tile
-    (4, 128, 256, "scale_relu"),     # two 128-wide bf16 tiles, a dead tile
+    (4, 128, 256, "scale_relu"),     # two 128-wide tiles, a dead tile
     (2, 128, 96, "all"),             # the main L0 shape: 4 Cin chunks
     (2, 96, 128, "unaligned"),       # 128 wide; x and w off 16 bytes
+    ("ragged", 40, 128, "all"),      # a 32-row group with no neighbour;
+                                     # f32: 96-wide tiles (2 row tiles)
 ])
 def test_emulated_conv3(emu, levels, dtype, lv, cin, cout, epi):
     """Kernel 1 against its twin. x's padding rows hold noise; level 3's
     second and level 4's second 128-row tile have no live offset, so they
     take the epilogue alone; "unaligned": x and w start one element past a
     16-byte boundary (scalar staging)."""
-    lvl = levels[lv]
-    n = lvl.num_padded
-    if lv >= 3:
-        assert _dead_tiles(lvl) > 0
-    g = torch.Generator().manual_seed(lv * 100 + cin)
+    nbr, valid, n, g = _tables(levels, lv, cin)
+    if lv in (3, 4):
+        assert _dead_tiles(levels[lv]) > 0
     x = torch.randn(n, cin, generator=g).to(dtype)      # noisy padding rows
     w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(dtype)
     if epi == "unaligned":
@@ -159,12 +180,11 @@ def test_emulated_conv3(emu, levels, dtype, lv, cin, cout, epi):
         res = torch.randn(n, cout, generator=g).to(dtype)
     relu = epi != "none"
     out = torch.empty(n, cout, dtype=dtype)
-    code = emu.conv3_fwd(_p(x), _p(w), _p(lvl.nbr_idx), _p(lvl.valid),
-                         _p(sc), _p(sh), _p(res), _p(out), n, cin, cout,
-                         int(relu), int(dtype == torch.bfloat16), None)
+    code = emu.conv3_fwd(_p(x), _p(w), _p(nbr), _p(valid), _p(sc), _p(sh),
+                         _p(res), _p(out), n, cin, cout, int(relu),
+                         int(dtype == torch.bfloat16), None)
     assert code == 0
-    _close(out, conv3_fwd_plain(x, w, lvl.nbr_idx, lvl.valid, sc, sh, res,
-                                relu), dtype)
+    _close(out, conv3_fwd_plain(x, w, nbr, valid, sc, sh, res, relu), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -341,6 +361,7 @@ def test_emulated_csr_conv3_ragged_level(emu, dtype):
     _close(out, conv3_fwd_plain(x, w, nbr, valid), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("lv,cin,cout,epi", [
     (1, 3, 32, "scale_relu"),     # the stem's Cin 3: scalar row staging
     (2, 64, 96, "none"),          # Cout 96
@@ -349,25 +370,15 @@ def test_emulated_csr_conv3_ragged_level(emu, dtype):
     (4, 40, 256, "all"),          # two 128-wide column tiles
     ("ragged", 24, 40, "all"),    # 200 rows, a group with no pair
 ])
-def test_emulated_csr_conv3_equals_kernel_1(emu, levels, lv, cin, cout,
-                                            epi):
-    """bf16: kernel 6 (kernel 1's ring main loop behind a prologue that
+def test_emulated_csr_conv3_equals_kernel_1(emu, levels, dtype, lv, cin,
+                                            cout, epi):
+    """Kernel 6 (kernel 1's ring main loop and tile behind a prologue that
     reads the pair tables) and kernel 1 on the same level, the tables built
-    from its map, are bitwise equal on every valid row, and kernel 6 is zero
-    on the padding rows (x's padding rows hold noise) and within tolerance
-    of its twin. On the ragged level one 32-row group of the first tile has
-    pairs at offset 0 and the next has none."""
-    dtype = torch.bfloat16
-    if lv == "ragged":
-        nbr, g = _ragged_map()
-        n = nbr.shape[1]
-        nbr[0, 32:64] = n - 1
-        valid = torch.arange(n) < n - 1
-        assert (nbr[0, :32] != n - 1).any()
-    else:
-        nbr, valid = levels[lv].nbr_idx, levels[lv].valid
-        n = levels[lv].num_padded
-        g = torch.Generator().manual_seed(lv * 100 + cin)
+    from its map, are bitwise equal on every valid row, in both dtypes, and
+    kernel 6 is zero on the padding rows (x's padding rows hold noise) and
+    within tolerance of its twin. On the ragged level one 32-row group of
+    the first tile has pairs at offset 0 and the next has none."""
+    nbr, valid, n, g = _tables(levels, lv, cin)
     csr = build_csr_graph(nbr.numpy())
     x = torch.randn(n, cin, generator=g).to(dtype)      # noisy padding rows
     w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(dtype)
@@ -378,19 +389,67 @@ def test_emulated_csr_conv3_equals_kernel_1(emu, levels, lv, cin, cout,
     if epi == "all":
         res = torch.randn(n, cout, generator=g).to(dtype)
     relu = epi != "none"
+    bf = int(dtype == torch.bfloat16)
     out6 = torch.full((n, cout), float("nan"), dtype=dtype)
     out1 = torch.full((n, cout), float("nan"), dtype=dtype)
     assert emu.csr_conv3_fwd(
         _p(x), _p(w), _p(csr.pair_in), _p(csr.pair_out), _p(csr.tile_start),
         _p(valid), _p(sc), _p(sh), _p(res), _p(out6), n, cin, cout,
-        int(relu), 1, None) == 0
+        int(relu), bf, None) == 0
     assert emu.conv3_fwd(_p(x), _p(w), _p(nbr), _p(valid), _p(sc), _p(sh),
-                         _p(res), _p(out1), n, cin, cout, int(relu), 1,
+                         _p(res), _p(out1), n, cin, cout, int(relu), bf,
                          None) == 0
     assert torch.equal(out6[valid], out1[valid])
     assert not out6[~valid].any()
     _close(out6, csr_conv3_fwd_plain(x, w, csr, valid, sc, sh, res, relu),
            dtype)
+
+
+@pytest.mark.parametrize("kernel,lv,cin,cout,epi", [
+    ("conv3", 1, 3, 32, "scale_relu"),    # scalar rows, Cin rounded to 4
+    ("conv3", 2, 128, 96, "all"),         # 4 chunks of 32
+    ("conv3", 4, 40, 256, "all"),         # 128 wide: chunks 16, 16, 8
+    ("csr", 3, 64, 128, "scale_relu"),    # kernel 6, narrowed to 96 wide
+    ("csr", "ragged", 24, 40, "all"),     # a 32-row group with no pair
+    ("dx", 3, 40, 96, None),              # kernel 4's dx: 40 -> 96
+])
+def test_emulated_conv3_f32_equals_serial_fmaf_chain(emu, levels, kernel,
+                                                     lv, cin, cout, epi):
+    """The f32 order contract: kernels 1, 6 and 4's dx give, on every valid
+    row, the bits of the serial reference (tests/cuda_emu/serial_ref.cu),
+    which computes each output as one fmaf chain over the offsets in order,
+    then the channels in order. Any other order of the chunks or channels
+    rounds some output differently."""
+    nbr, valid, n, g = _tables(levels, lv, cin)
+    x = torch.randn(n, cin, generator=g)                # noisy padding rows
+    w = torch.randn(27, cin, cout, generator=g) * 0.1
+    sc = sh = res = None
+    if epi not in (None, "none"):
+        sc = torch.rand(cout, generator=g) + 0.5
+        sh = torch.randn(cout, generator=g)
+    if epi == "all":
+        res = torch.randn(n, cout, generator=g)
+    relu = epi not in (None, "none")
+    out = torch.full((n, cout), float("nan"))
+    if kernel == "csr":
+        csr = build_csr_graph(nbr.numpy())
+        code = emu.csr_conv3_fwd(
+            _p(x), _p(w), _p(csr.pair_in), _p(csr.pair_out),
+            _p(csr.tile_start), _p(valid), _p(sc), _p(sh), _p(res), _p(out),
+            n, cin, cout, int(relu), 0, None)
+    elif kernel == "dx":   # x plays gm (N, Cin), w the flip-transposed weights
+        code = emu.conv3_bwd_dx(_p(x), _p(w), _p(nbr), _p(valid), _p(out), n,
+                                cout, cin, 0, None)
+    else:
+        code = emu.conv3_fwd(_p(x), _p(w), _p(nbr), _p(valid), _p(sc),
+                             _p(sh), _p(res), _p(out), n, cin, cout,
+                             int(relu), 0, None)
+    assert code == 0
+    ref = torch.full((n, cout), float("nan"))
+    assert emu.serial_gather_gemm_f32(
+        _p(x), _p(w), _p(nbr), _p(valid), _p(sc), _p(sh), _p(res), _p(ref),
+        27, n, n - 1, cin, cout, int(relu)) == 0
+    assert torch.equal(out[valid], ref[valid])
 
 
 def _brick_level(xyz, n_pad, nb_pad):

@@ -346,7 +346,8 @@ def test_proto_brick_twin_is_used_for_cpu_tensors_only():
 
 def test_sass_opcode_counts():
     """`bench/sass.py` counts each kernel's opcodes from cuobjdump's SASS,
-    predicated instructions included."""
+    predicated instructions included, and the 128-bit shared loads again
+    under "LDS.128"."""
     from unscene3d_torch.bench.sass import opcode_counts
 
     sass = """
@@ -361,33 +362,43 @@ def test_sass_opcode_counts():
 \t\tFunction : _Z3barPf
         /*0000*/                   LDS.128 R4, [R2] ;
         /*0010*/              @P1 BAR.SYNC.DEFER_BLOCKING 0x0 ;
-        /*0020*/                   EXIT ;
+        /*0020*/                   LDS.U R8, [R2+0x10] ;
+        /*0030*/                   EXIT ;
 """
     counts = opcode_counts(sass)
     assert list(counts) == ["_Z3fooPf", "_Z3barPf"]
     assert counts["_Z3fooPf"] == {"LDC": 1, "LD": 1, "MOVM": 1, "HMMA": 2}
-    assert counts["_Z3barPf"] == {"LDS": 1, "BAR": 1, "EXIT": 1}
+    assert counts["_Z3barPf"] == {"LDS": 2, "LDS.128": 1, "BAR": 1,
+                                  "EXIT": 1}
 
 
-def test_ring_times_runs_every_case_on_the_cpu():
+def test_ring_times_runs_every_case_on_the_cpu(tmp_path):
     """`bench/ring_times.py` on "cpu" at a tiny size (its times are then
-    the twins' on the host clock, no device time): every case of kernel 1,
-    kernel 2's up2 and kernel 6 beside kernel 1 gets a positive time."""
+    the twins' on the host clock, no device time): in f32 and in bf16,
+    every case of kernel 1, kernel 2's up2 and kernel 6 beside kernel 1
+    gets a positive time and a fingerprint per output row; a saved file
+    compared with itself differs in no row."""
     from unscene3d_torch.bench import ring_times
 
+    rows = {}
     got = ring_times.run(
         "cpu", bench=dict(num_points=4000, num_objects=3, extent=2.0,
                           seed=0),
         train=dict(num_points=3000, num_objects=3, extent=2.0),
-        train_batch=1, voxel=0.05)
+        train_batch=1, voxel=0.05, rows=rows)
     cases = ["L0 128->96 +res", "L0 3->32", "L2 128->128",
              "as dx, train L0 128->96"]
-    assert set(got) == ({"conv3_fwd L0 3->32", "conv3_fwd L0 128->96 +res",
-                         "conv3_fwd L3 384->256",
-                         "k_apply up2 L1->L0 96->96"}
-                        | {f"csr_conv3 {c}" for c in cases}
-                        | {f"conv3_fwd beside it, {c}" for c in cases})
+    names = ({"conv3_fwd L0 3->32", "conv3_fwd L0 128->96 +res",
+              "conv3_fwd L3 384->256", "k_apply up2 L1->L0 96->96"}
+             | {f"csr_conv3 {c}" for c in cases}
+             | {f"conv3_fwd beside it, {c}" for c in cases})
+    assert set(got) == {f"{tag} {n}" for tag in ("float32", "bfloat16")
+                        for n in names}
     assert all(t > 0 for t in got.values())
+    assert set(rows) == set(got)
+    path = tmp_path / "rows.pt"
+    torch.save(rows, path)
+    assert set(ring_times.compare(str(path), str(path)).values()) == {0}
 
 
 def test_sass_digests_ignore_addresses_and_encodings():

@@ -6,14 +6,15 @@ Builds the kernel library (`ops/_build.py`) if needed, disassembles it with
 `cuobjdump -sass` and prints, for every kernel whose mangled name holds one
 of the given substrings (all kernels without arguments), its instruction
 count and the count of each opcode that says how a kernel feeds its
-products: tensor-core MMAs (HMMA), FMAs, shared, generic and global loads
-(LDS, LD, LDG), ldmatrix (LDSM), matrix transposes (MOVM), asynchronous
-copies (LDGSTS) and barriers (BAR), with a digest of its instruction text
-that tells two builds of the same machine code from two that differ.
-Needs the CUDA toolkit, not a GPU.
-`ring_kernel` selects the bodies that share the bf16 ring main loop
+products: tensor-core MMAs (HMMA), f32 FMAs (FFMA), shared loads (LDS, of
+them 128-bit LDS.128), generic and global loads (LD, LDG), ldmatrix (LDSM),
+matrix transposes (MOVM), asynchronous copies (LDGSTS) and barriers (BAR),
+with a digest of its instruction text that tells two builds of the same
+machine code from two that differ. Needs the CUDA toolkit, not a GPU.
+`ring_kernel` selects the bodies that share the ring main loop
 (`gather_gemm.cuh:ring_main_loop`): kernel 1's `gather_gemm_ring_kernel`
-and kernel 6's `csr_conv_ring_kernel`, one line per Cout tile.
+and kernel 6's `csr_conv_ring_kernel`, one line per tile (`RingTile`:
+bf16, `FmaRingTile`: f32) and Cout width.
 """
 
 from __future__ import annotations
@@ -28,8 +29,11 @@ import sys
 
 from unscene3d_torch.ops import _build
 
-OPCODES = ("HMMA", "FFMA", "LDS", "LD", "LDG", "LDSM", "MOVM", "LDGSTS", "BAR")
-_INSTR = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+OPCODES = ("HMMA", "FFMA", "LDS", "LDS.128", "LD", "LDG", "LDSM", "MOVM",
+           "LDGSTS", "BAR")
+# an opcode and its modifiers (LDS.U.128: "LDS", ".U.128")
+_INSTR = re.compile(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+                    r"((?:\.[A-Z0-9_]+)*)")
 # one instruction's text, between its address and its encoding comment
 _TEXT = re.compile(r"/\*[0-9a-f]{4}\*/\s+([^;]*);")
 
@@ -50,9 +54,16 @@ def _functions(sass: str):
 
 
 def opcode_counts(sass: str) -> dict[str, collections.Counter]:
-    """Mangled kernel name -> Counter of its SASS opcodes."""
-    return {name: collections.Counter(_INSTR.findall(block))
-            for name, block in _functions(sass)}
+    """Mangled kernel name -> Counter of its SASS opcodes, and of the
+    128-bit shared loads under "LDS.128"."""
+    out = {}
+    for name, block in _functions(sass):
+        found = _INSTR.findall(block)
+        counts = collections.Counter(op for op, _ in found)
+        counts.update(f"{op}.128" for op, mods in found
+                      if op == "LDS" and ".128" in mods)
+        out[name] = counts
+    return out
 
 
 def digests(sass: str) -> dict[str, str]:
@@ -76,7 +87,8 @@ def main(argv: list[str]) -> int:
         if argv and not any(a in name for a in argv):
             continue
         mix = " ".join(f"{op}={counts[op]}" for op in OPCODES)
-        print(f"{name}: {sum(counts.values())} instructions; {mix}; "
+        total = sum(counts.values()) - counts["LDS.128"]
+        print(f"{name}: {total} instructions; {mix}; "
               f"sass {digest[name]}")
     return 0
 
