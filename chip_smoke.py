@@ -126,11 +126,14 @@ def log(msg: str) -> None:
     print(f"[{time.perf_counter() - T_START:7.1f}s] {msg}", flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of fn on the current stream (CUDA events)."""
+def cuda_ms(fn, reps: int = 10, warmup: int = 2,
+            spin: bool = False) -> float:
+    """Median milliseconds of fn on the current stream (CUDA events); spin:
+    each run queued behind a spin kernel, so that a kernel's time holds no
+    host issue time (bench/timing.py)."""
     from unscene3d_torch.bench.timing import device_ms
 
-    return device_ms(fn, "cuda", reps, warmup)
+    return device_ms(fn, "cuda", reps, warmup, spin)
 
 
 def counters():
@@ -208,8 +211,9 @@ def phase_build():
 
 
 def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
-             other=None, equal_rows=None):
-    """Run kernel twice (bitwise equal), compare with the twin, time both.
+             other=None, equal_rows=None, twin_bitwise=False):
+    """Run kernel twice (bitwise equal), compare with the twin (bitwise
+    where twin_bitwise: the same f32 adds in the same order), time both.
     work = (bytes moved, FLOPs done, dtype of the products) gives the bound:
     the larger of bytes over the card's memory rate and FLOPs over its peak
     rate for that type (FLOPs may be a dict by dtype, whose times add). library: one PyTorch call computing the same
@@ -222,10 +226,12 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
     if not torch.equal(got, again):
         raise AssertionError(f"{name} {dtype}: two runs differ")
     ref = twin()
+    if twin_bitwise and not torch.equal(got, ref):
+        raise AssertionError(f"{name} {dtype}: not bitwise its twin")
     err = (got.float() - ref.float()).abs().max().item()
     scale = max(ref.float().abs().max().item(), 1e-6)
     tol = KERNEL_TOL[dtype] if tol is None else tol
-    ms, plain_ms = cuda_ms(kernel), cuda_ms(twin)
+    ms, plain_ms = cuda_ms(kernel, spin=True), cuda_ms(twin, spin=True)
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=None,
                bound_by=None, library_ms=None)
     extra = ""
@@ -242,13 +248,13 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
         extra += (f" bound_ms={out['bound_ms']:.4f} ({out['bound_by']}: "
                   f"{moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     if library is not None:
-        out["library_ms"] = cuda_ms(library)
+        out["library_ms"] = cuda_ms(library, spin=True)
         extra += f" library_ms={out['library_ms']:.3f}"
     if other is not None:
         other_name, other_fn = other
         alt = other_fn()
         other_err = (got.float() - alt.float()).abs().max().item()
-        out["other_ms"] = cuda_ms(other_fn)
+        out["other_ms"] = cuda_ms(other_fn, spin=True)
         extra += (f" vs {other_name}: max_rel_err={other_err / scale:.3e} "
                   f"{other_name}_ms={out['other_ms']:.3f} (ratio "
                   f"{ms / out['other_ms']:.3f})")
@@ -260,6 +266,8 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
                 raise AssertionError(f"{name} {dtype}: not bitwise "
                                      f"{other_name} on the masked rows")
             extra += f" bitwise {other_name} on valid rows"
+    if twin_bitwise:
+        extra += " bitwise its twin"
     log(f"  {name:44s} {str(dtype)[6:]:8s} max_abs_err={err:.3e} "
         f"max_rel_err={err / scale:.3e} (tol {tol:g}) ms={ms:.3f} "
         f"plain_ms={plain_ms:.3f}{extra}")
@@ -268,15 +276,69 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
     return out
 
 
+def _compare_pool(name, fine, coarse, c, dtype, g, dev):
+    """Kernel 2's 8-child sum (avg_pool2) from `fine` to `coarse` on a
+    random (fine rows, c) input, bitwise its twin. The library call: one
+    embedding_bag sum over each row's 8 children with the miss row as
+    padding_idx (no out-row mask)."""
+    from unscene3d_torch.ops.k_apply import k_apply, k_apply_plain
+
+    x = torch.randn(fine.num_padded, c, generator=g).to(dev, dtype)
+    table, valid = coarse.child_idx, coarse.valid
+    bags = table.t().contiguous()
+    read = hits(table)
+    return _compare(
+        f"k_apply_sum pool {name} C={c}", dtype,
+        lambda: k_apply(x, table, None, valid),
+        lambda: k_apply_plain(x, table, None, valid),
+        # bytes: the table, the flags, the rows it points at (padding rows
+        # and the miss row are never read) and the output
+        work=(nbytes(table, valid)
+              + (read + coarse.num_padded) * c * x.element_size(),
+              read * c, torch.float32),
+        library=lambda: torch.nn.functional.embedding_bag(
+            bags, x, mode="sum", padding_idx=fine.num_padded - 1),
+        twin_bitwise=True)
+
+
+def _compare_segment_sum(name, batch, dtype, g, dev):
+    """Kernel 3 on a random (N_0, 128) input over the batch's segments (its
+    host order and pieces), as Mask3D.forward's mask-feature pool calls it.
+    The library call: one index_add_ of all rows into S + 1 segments, the
+    last one collecting the invalid rows (atomics: not deterministic, so
+    nothing in the port calls it on the card)."""
+    from unscene3d_torch.ops.segment_pool import segment_sum, segment_sum_plain
+
+    lvl = batch.graph.levels[0].to(dev)
+    S = batch.batch_size * batch.num_segments_padded
+    seg_flat = (lvl.coords[:, 0].long() * batch.num_segments_padded
+                + batch.point2segment.to(dev).long())
+    xs = torch.randn(lvl.num_padded, 128, generator=g).to(dev, dtype)
+    order, pieces = batch.seg_order.to(dev), batch.seg_pieces.to(dev)
+    walk = dict(order=order, offsets=batch.seg_offsets.to(dev), pieces=pieces)
+    dump = torch.where(lvl.valid, seg_flat, S)
+    pooled = torch.zeros(S + 1, 128, dtype=dtype, device=dev)
+    return _compare(
+        f"segment_sum {name} ({lvl.num_padded},128)->({S},128)", dtype,
+        lambda: segment_sum(xs, seg_flat, S, lvl.valid, **walk),
+        lambda: segment_sum_plain(xs, seg_flat, S, lvl.valid),
+        # bytes: the rows of the order (invalid rows and ids out of range
+        # are absent and never read), the order, the pieces and the output
+        work=(nbytes(order, pieces)
+              + (order.numel() + S) * 128 * xs.element_size(),
+              order.numel() * 128, torch.float32),
+        library=lambda: pooled.zero_().index_add_(0, dump, xs))
+
+
 def phase_kernels(dev, batch, csr_batch):
-    """Kernels 1-3 against their twins at the bench scene's shapes; kernel
-    1 at level 0 also against kernel 6 on the same inputs over the pair
-    tables of csr_batch (the same scene collated with csr_levels), bitwise
-    on valid rows in both dtypes."""
+    """Kernels 1-3 against their twins at the bench scene's shapes (kernel
+    2's pool at each of its four instances); kernel 1 at level 0 also
+    against kernel 6 on the same inputs over the pair tables of csr_batch
+    (the same scene collated with csr_levels), bitwise on valid rows in
+    both dtypes."""
     from unscene3d_torch.ops.conv3 import conv3_fwd, conv3_fwd_plain
     from unscene3d_torch.ops.csr_conv import csr_conv3_fwd
     from unscene3d_torch.ops.k_apply import k_apply, k_apply_plain
-    from unscene3d_torch.ops.segment_pool import segment_sum, segment_sum_plain
 
     L = [lv.to(dev) for lv in batch.graph.levels]
     csr = {lv: level.csr.to(dev) for lv, level in
@@ -334,40 +396,14 @@ def phase_kernels(dev, batch, csr_batch):
             work=(nbytes(xu, wu, table, L[0].valid)
                   + L[0].num_padded * 96 * xu.element_size(),
                   2 * hits(table) * 96 * 96, dtype))
-        # 8-child pool sums: coordinates (C=3) and mask features (C=128);
-        # the library call: one embedding_bag sum over each row's 8 children
-        # with the miss row as padding_idx (no out-row mask)
-        bags = L[1].child_idx.t().contiguous()
-        for c in (3, 128):
-            xp = torch.randn(L[0].num_padded, c, generator=g).to(dev, dtype)
-            res["k_apply_sum"][(c, dtype)] = _compare(
-                f"k_apply_sum pool L0->L1 C={c}", dtype,
-                lambda: k_apply(xp, L[1].child_idx, None, L[1].valid),
-                lambda: k_apply_plain(xp, L[1].child_idx, None, L[1].valid),
-                work=(nbytes(xp, L[1].child_idx, L[1].valid)
-                      + L[1].num_padded * c * xp.element_size(),
-                      hits(L[1].child_idx) * c, torch.float32),
-                library=lambda: torch.nn.functional.embedding_bag(
-                    bags, xp, mode="sum", padding_idx=L[0].num_padded - 1))
-        # segment mean-pool sum (204800, 128) -> (320, 128)
-        S = batch.batch_size * batch.num_segments_padded
-        seg_flat = (L[0].coords[:, 0].long() * batch.num_segments_padded
-                    + batch.point2segment.to(dev).long())
-        xs = torch.randn(L[0].num_padded, 128, generator=g).to(dev, dtype)
-        order, offsets = batch.seg_order.to(dev), batch.seg_offsets.to(dev)
-        # the library call: one index_add_ of all rows into S + 1 segments,
-        # the last one collecting the invalid rows (atomics: not
-        # deterministic, so nothing in the port calls it on the card)
-        dump = torch.where(L[0].valid, seg_flat, S)
-        pooled = torch.zeros(S + 1, 128, dtype=dtype, device=dev)
-        res["segment_sum"][dtype] = _compare(
-            f"segment_sum ({L[0].num_padded},128)->({S},128)", dtype,
-            lambda: segment_sum(xs, seg_flat, S, L[0].valid, order=order,
-                                offsets=offsets),
-            lambda: segment_sum_plain(xs, seg_flat, S, L[0].valid),
-            work=(nbytes(xs, order, offsets) + S * 128 * xs.element_size(),
-                  int(L[0].valid.sum().item()) * 128, torch.float32),
-            library=lambda: pooled.zero_().index_add_(0, dump, xs))
+        # the 8-child pool sums at every main-path instance: coordinates
+        # (C=3, always f32) and mask features (C=128, model dtype)
+        for lv in range(4):
+            for c in (3, 128) if dtype == torch.float32 else (128,):
+                res["k_apply_sum"][("bench", lv, c, dtype)] = _compare_pool(
+                    f"L{lv}->L{lv + 1}", L[lv], L[lv + 1], c, dtype, g, dev)
+        res["segment_sum"][("bench", dtype)] = _compare_segment_sum(
+            "bench", batch, dtype, g, dev)
     return res
 
 
@@ -556,7 +592,8 @@ def phase_train_kernels(dev, batch, csr_batch):
     """Kernels 4 and 5 against their twins at the train batch's shapes; at
     level 0 kernel 4's dx also against kernel 6 as dx on the same inputs,
     over the pair tables of csr_batch (the same batch collated with
-    csr_levels), bitwise on valid rows in both dtypes."""
+    csr_levels), bitwise on valid rows in both dtypes; kernel 2's pool
+    L0->L1 and kernel 3 at the train batch's level 0."""
     from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_bwd_plain,
                                            conv3_dw, conv3_dw_plain,
                                            flip_transpose)
@@ -567,8 +604,13 @@ def phase_train_kernels(dev, batch, csr_batch):
            enumerate(csr_batch.graph.levels) if level.csr is not None}
     log("backward kernels vs plain twins at the train batch's shapes")
     g = torch.Generator().manual_seed(1)
-    res = {"conv3_bwd": {}, "conv3_dw": {}}
+    res = {"conv3_bwd": {}, "conv3_dw": {}, "k_apply_sum": {},
+           "segment_sum": {}}
     for dtype in (torch.float32, torch.bfloat16):
+        res["k_apply_sum"][("train", 0, 128, dtype)] = _compare_pool(
+            "train L0->L1", L[0], L[1], 128, dtype, g, dev)
+        res["segment_sum"][("train", dtype)] = _compare_segment_sum(
+            "train", batch, dtype, g, dev)
         for lv, cin, cout in ((0, 3, 32), (0, 128, 96), (3, 384, 256)):
             lvl = L[lv]
             n = lvl.num_padded
@@ -1700,7 +1742,8 @@ def main() -> int:
 
     tbatch = train_batch()
     tbatch_csr = train_batch(CSR_LEVELS)
-    res.update(phase_train_kernels(dev, tbatch, tbatch_csr))
+    for name, cases in phase_train_kernels(dev, tbatch, tbatch_csr).items():
+        res.setdefault(name, {}).update(cases)
     res["csr_conv3"], dw_vs_csr = phase_csr_kernels(dev, batches[CSR_LEVELS],
                                                     tbatch_csr)
     tbatch = tbatch.to(dev)
@@ -1719,8 +1762,8 @@ def main() -> int:
 
     main_case = {"conv3_fwd": (0, 128, 96, torch.bfloat16),
                  "k_apply_gemm": ("up", torch.bfloat16),
-                 "k_apply_sum": (128, torch.float32),
-                 "segment_sum": torch.float32,
+                 "k_apply_sum": ("bench", 0, 128, torch.float32),
+                 "segment_sum": ("bench", torch.float32),
                  "conv3_bwd": (0, 128, 96, torch.bfloat16),
                  "conv3_dw": (0, 128, 96, torch.bfloat16),
                  "csr_conv3": (0, 128, 96, torch.bfloat16),

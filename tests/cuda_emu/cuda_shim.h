@@ -12,10 +12,10 @@
 // functions) lands at the wait that must see it, not before. A misaligned
 // WMMA pointer (the card needs 32 bytes) is reported by the next
 // cudaGetLastError, as cudaErrorMisalignedAddress. Of the warp intrinsics
-// only __ballot_sync is emulated (every lane of the warp must call it), with
-// __popc beside it. The device reports 4 SMs (cudaDeviceGetAttribute), so
-// that a small level takes the narrower f32 column tiles a small grid gets
-// on the card.
+// __ballot_sync, __shfl_sync and __shfl_xor_sync are emulated (every lane
+// of the warp must call them), with __popc beside them. The device reports
+// 4 SMs (cudaDeviceGetAttribute), so that a small level takes the narrower
+// f32 column tiles a small grid gets on the card.
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -211,9 +211,12 @@ inline void store_matrix_sync(float* p,
 
 inline std::barrier<>* g_block_barrier = nullptr;
 inline std::atomic<int> g_block_or{0};
-// one barrier and one vote slot per lane for each warp of the block
+// one barrier and one vote slot per lane for each warp of the block, and two
+// shuffle slots per lane (see emu_shuffle)
 inline std::unique_ptr<std::barrier<>>* g_warp_barriers = nullptr;
 inline unsigned* g_warp_votes = nullptr;
+inline uint64_t* g_warp_words = nullptr;
+inline thread_local unsigned g_shuffles = 0;  // this thread's, in its launch
 
 inline int emu_linear_tid() {
   return static_cast<int>(threadIdx.x + blockDim.x * (threadIdx.y +
@@ -235,6 +238,39 @@ inline unsigned __ballot_sync(unsigned mask, int pred) {
   return r & mask;
 }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+
+// v of lane src_lane of the warp (a value of up to 8 bytes): every lane
+// publishes its own value, waits for the warp, reads. Shuffles alternate
+// between two slot sets, so one barrier each suffices: a lane overwrites a
+// set only two shuffles later, after the barrier of the shuffle between,
+// which every lane reaches only once it has read this one.
+template <class V>
+V emu_shuffle(V v, int src_lane) {
+  static_assert(sizeof(V) <= sizeof(uint64_t), "shuffle of a wide value");
+  const int t = emu_linear_tid();
+  const int w = t / 32;
+  const int nthr = static_cast<int>(blockDim.x * blockDim.y * blockDim.z);
+  uint64_t* words = g_warp_words + (g_shuffles++ % 2) * nthr;
+  uint64_t word = 0;
+  std::memcpy(&word, &v, sizeof(V));
+  words[t] = word;
+  g_warp_barriers[w]->arrive_and_wait();
+  word = words[32 * w + src_lane];
+  V r;
+  std::memcpy(&r, &word, sizeof(V));
+  return r;
+}
+template <class V>
+V __shfl_sync(unsigned, V v, int src, int width = 32) {
+  const int lane = emu_linear_tid() % 32;
+  return emu_shuffle(v, (lane & ~(width - 1)) + (src & (width - 1)));
+}
+template <class V>
+V __shfl_xor_sync(unsigned, V v, int lane_mask, int width = 32) {
+  const int lane = emu_linear_tid() % 32;
+  const int src = lane ^ lane_mask;
+  return emu_shuffle(v, src < ((lane & ~(width - 1)) + width) ? src : lane);
+}
 
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 
@@ -268,8 +304,10 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t, F body) {
     warp_bars.push_back(std::make_unique<std::barrier<>>(
         nthr - 32 * w < 32 ? nthr - 32 * w : 32));
   std::vector<unsigned> votes(nthr);
+  std::vector<uint64_t> words(2 * nthr);
   g_warp_barriers = warp_bars.data();
   g_warp_votes = votes.data();
+  g_warp_words = words.data();
   std::vector<std::thread> threads;
   threads.reserve(nthr);
   for (int t = 0; t < nthr; ++t)

@@ -4,7 +4,9 @@
 // multiplies it by a fragment of ones: the card needs a 32-byte aligned
 // fragment pointer, and the shim reports any other through cudaGetLastError.
 // A column-major matrix_a fragment reads its tile transposed. __ballot_sync
-// gathers each lane's predicate into its bit.
+// gathers each lane's predicate into its bit. __shfl_sync reads another
+// lane's value (within segments of `width` lanes), __shfl_xor_sync the value
+// of the lane whose index differs by the mask.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -58,6 +60,21 @@ __global__ void ballot_kernel(const int* pred, int* rank, int* count) {
   count[t] = __popc(votes);
 }
 
+// Per lane t of a warp: out[3t] = in[(t + 5) % 32] (an int from lane t + 5),
+// out[3t + 1] = in[t & ~7 | (t + 3) & 7] (width 8), out[3t + 2] = the sum of
+// the warp's values as floats by an xor butterfly (the same in every lane).
+__global__ void shuffle_kernel(const int* in, float* out) {
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int v = in[t];
+  out[3 * t] = (float)__shfl_sync(0xffffffffu, v, (lane + 5) % 32);
+  out[3 * t + 1] = (float)__shfl_sync(0xffffffffu, v, lane + 3, 8);
+  float s = (float)v;
+  for (int off = 16; off >= 1; off /= 2)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  out[3 * t + 2] = s;
+}
+
 }  // namespace
 
 // out (16, 16) f32; returns the launch's cudaGetLastError().
@@ -79,5 +96,12 @@ extern "C" int emu_ballot(const void* pred, void* rank, void* count,
   ballot_kernel<<<1, threads, 0, nullptr>>>(static_cast<const int*>(pred),
                                             static_cast<int*>(rank),
                                             static_cast<int*>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// in (threads,) int32, out (threads, 3) f32; threads a multiple of 32.
+extern "C" int emu_shfl(const void* in, void* out, int threads) {
+  shuffle_kernel<<<1, threads, 0, nullptr>>>(static_cast<const int*>(in),
+                                             static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

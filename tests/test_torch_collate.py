@@ -19,7 +19,8 @@ from unscene3d_tpu.ops.window_gather import (up_tables_from_parents as
                                              jax_up_tables)
 from unscene3d_torch.data.collate import FreeMaskCollator
 from unscene3d_torch.data.synthetic import make_batch
-from unscene3d_torch.ops.segment_pool import segment_order
+from unscene3d_torch.ops.segment_pool import (ROWS_PER_PIECE, segment_order,
+                                              segment_pieces)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -142,6 +143,40 @@ def test_segment_order_walks_each_segment_in_row_order(both):
             rows, np.nonzero(valid & (seg_flat == s))[0])
     np.testing.assert_array_equal(np.diff(offsets),
                                   got.seg_counts.numpy().astype(np.int64))
+
+
+def _check_pieces(pieces, offsets, rows):
+    """Segment s's pieces first[s]:first[s + 1] tile its run of the order
+    offsets[s]:offsets[s + 1] exactly once, in order, each at most `rows`
+    long and all but its last exactly `rows`."""
+    s = len(offsets) - 1
+    first, bounds = pieces[:s + 1], pieces[s + 1:]
+    assert first[0] == 0 and first[-1] == len(bounds) - 1
+    assert bounds[-1] == offsets[-1]
+    for k in range(s):
+        cut = bounds[first[k]:first[k + 1] + 1]
+        if offsets[k] == offsets[k + 1]:
+            assert first[k] == first[k + 1]
+            continue
+        assert cut[0] == offsets[k] and cut[-1] == offsets[k + 1]
+        sizes = np.diff(cut)
+        assert (sizes[:-1] == rows).all() and 0 < sizes[-1] <= rows
+
+
+def test_segment_pieces_cut_each_segment_in_order(both):
+    _, _, got, _ = both
+    offsets = got.seg_offsets.numpy()
+    pieces = got.seg_pieces.numpy()
+    assert got.seg_pieces.dtype == torch.int32
+    np.testing.assert_array_equal(pieces, segment_pieces(offsets))
+    _check_pieces(pieces, offsets, ROWS_PER_PIECE)
+    rng = np.random.RandomState(0)
+    counts = rng.choice([0, 1, 5, 16, 17, 100], 40)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    for rows in (1, 16, 64):
+        _check_pieces(segment_pieces(offsets, rows), offsets, rows)
+    np.testing.assert_array_equal(segment_pieces(np.array([0, 0, 0]), 4),
+                                  [0, 0, 0, 0])
 
 
 def test_segment_order_drops_invalid_and_out_of_range():

@@ -32,8 +32,8 @@ from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_bwd_plain, conv3_dw,
 from unscene3d_torch.ops.csr_conv import (build_csr_graph, csr_conv3_fwd,
                                           csr_conv3_fwd_plain)
 from unscene3d_torch.ops.k_apply import k_apply, k_apply_plain
-from unscene3d_torch.ops.segment_pool import (segment_order, segment_sum,
-                                              segment_sum_plain)
+from unscene3d_torch.ops.segment_pool import (segment_order, segment_pieces,
+                                              segment_sum, segment_sum_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -135,6 +135,55 @@ def test_segment_sum_matches_twin(cuda, dtype):
     again = segment_sum(*args, *walk)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
+    _close(got, segment_sum_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,layout", [(3, "aligned"), (20, "aligned"),
+                                      (40, "aligned"), (128, "aligned"),
+                                      (128, "unaligned")])
+def test_pool_sum_equals_twin_bitwise(cuda, levels, dtype, c, layout):
+    """Kernel 2's 8-child sum L0 -> L1 in each of its row layouts (a thread
+    per row; 8, 16 or 32 lanes a row; 16-byte or scalar lanes, the latter
+    also for x one element past 16 bytes) equals its twin bitwise."""
+    fine, coarse = levels[0].to(cuda), levels[1].to(cuda)
+    g = torch.Generator().manual_seed(c)
+    x = torch.randn(fine.num_padded, c, generator=g).to(cuda, dtype)
+    if layout == "unaligned":
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+        x = buf[1:].view(x.shape).copy_(x)
+    got = k_apply(x, coarse.child_idx, None, coarse.valid)
+    assert torch.equal(got, k_apply_plain(x, coarse.child_idx, None,
+                                          coarse.valid))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [3, 40, 128])
+def test_segment_sum_over_many_pieces(cuda, dtype, c):
+    """One segment of ~8,000 rows in pieces of 256 (8 tiles of 32 rows, 2
+    for each warp of a piece's block), empty segments, invalid rows and ids
+    outside [0, S): within tolerance of the twin, empty segments exactly 0,
+    two runs bitwise equal."""
+    rng = np.random.RandomState(2)
+    n, s = 20_000, 40
+    ids = rng.randint(0, s, n).astype(np.int32)
+    ids[rng.rand(n) < 0.4] = 7
+    ids[np.isin(ids, [0, 13, 39])] = 5
+    ids[rng.rand(n) < 0.05] = -1
+    ids[rng.rand(n) < 0.05] = s
+    valid = rng.rand(n) > 0.1
+    order, offsets = segment_order(ids, s, valid)
+    pieces = segment_pieces(offsets, rows=256)
+    assert pieces[8] - pieces[7] > 25
+    x = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(cuda, dtype)
+    args = (x, torch.from_numpy(ids).to(cuda), s,
+            torch.from_numpy(valid).to(cuda))
+    walk = [torch.from_numpy(a).to(cuda) for a in (order, offsets, pieces)]
+    got = segment_sum(*args, *walk)
+    again = segment_sum(*args, *walk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert not got[[0, 13, 39]].any()
     _close(got, segment_sum_plain(*args), dtype)
 
 

@@ -1,16 +1,15 @@
 """Kernels 8 and 9 (csrc/proto_brick.cu, csrc/win_decompose.cu) under the CPU
-emulation of CUDA of tests/test_torch_kernels_emulated.py, whose fixtures and
-tolerances this file shares: kernel 8 against its twin on a NaN-filled
+emulation of CUDA (tests/cuda_emu/emulation.py, whose fixtures and
+tolerances this file shares): kernel 8 against its twin on a NaN-filled
 output and, on the occupied cells, against kernel 7's twin; kernel 9 (bf16
 only) against its twin in all five variants, with noise on x's padding rows.
-A file of its own so that the emulated kernels run on two workers.
 """
 
 import pytest
 import torch
 
-from tests.test_torch_kernels_emulated import (_close, _p, bricks,  # noqa: F401
-                                               emu, levels, thin_bricks)
+from tests.cuda_emu.emulation import (_close, _p, bricks,  # noqa: F401
+                                      emu, levels, thin_bricks)
 from unscene3d_torch.ops import brick_engine as be
 
 

@@ -65,7 +65,7 @@ def run(device="cuda", bench=BENCH_SCENE, train=TRAIN_SCENE,
 
     def ms(name, fn):
         rows[name] = fingerprint(fn())
-        return device_ms(fn, dev)
+        return device_ms(fn, dev, spin=True)
 
     batch, _ = FreeMaskCollator(voxel_size=voxel, fine_buckets=True,
                                 fps_queries=100, csr_levels=CSR_LEVELS)(

@@ -48,6 +48,8 @@ class SceneBatch:
     seg_order: torch.Tensor      # (M,) int32 valid L0 rows, stable-sorted by
     #                              flat segment id b*S + point2segment
     seg_offsets: torch.Tensor    # (B*S + 1,) int32 offsets into seg_order
+    seg_pieces: torch.Tensor     # segment_pieces(seg_offsets): each
+    #                              segment's run of seg_order in pieces
     target: Targets | None = None  # when the scenes carry instance masks
 
     @property

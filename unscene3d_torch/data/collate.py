@@ -24,7 +24,7 @@ import torch
 from unscene3d_torch.data.batch import SceneBatch, Targets
 from unscene3d_torch.ops.hashing import sparse_quantize
 from unscene3d_torch.ops.kernel_maps import build_sparse_graph
-from unscene3d_torch.ops.segment_pool import segment_order
+from unscene3d_torch.ops.segment_pool import segment_order, segment_pieces
 from unscene3d_torch.ops.sparse_graph import bucket_size, graph_from_levels
 
 # instance targets are padded to a multiple of 8, at least 8 (the JAX
@@ -234,5 +234,6 @@ class FreeMaskCollator:
             scene_valid=tuple(t(a) for a in scene_valid),
             level_bounds=t(level_bounds), seg_counts=t(seg_counts),
             fps_idx=t(fps_idx), seg_order=t(seg_order),
-            seg_offsets=t(seg_offsets), target=target)
+            seg_offsets=t(seg_offsets),
+            seg_pieces=t(segment_pieces(seg_offsets)), target=target)
         return batch, meta

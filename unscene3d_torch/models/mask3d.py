@@ -197,7 +197,8 @@ class Mask3D(nn.Module):
         seg_flat = (batch.batch_idx.long() * S
                     + batch.point2segment.long())
         s = segment_sum(mask_features, seg_flat, B * S, valid0,
-                        order=batch.seg_order, offsets=batch.seg_offsets)
+                        order=batch.seg_order, offsets=batch.seg_offsets,
+                        pieces=batch.seg_pieces)
         mask_segments = (s / torch.clamp_min(batch.seg_counts, 1.0)
                          .to(s.dtype)[:, None]).reshape(B, S, D)
 

@@ -38,8 +38,9 @@ _SIGNATURES = {
     "k_apply_gemm": [_P] * 5 + [_I] * 6 + [_P],
     # x, table, valid, out, K, n_out, n_in, c, is_bf16, stream
     "k_apply_sum": [_P] * 4 + [_I] * 5 + [_P],
-    # x, order, offsets, out, num_segments, c, is_bf16, stream
-    "segment_sum": [_P] * 4 + [_I] * 3 + [_P],
+    # x, order, pieces, partial, out, num_segments, num_pieces, c, is_bf16,
+    # stream
+    "segment_sum": [_P] * 5 + [_I] * 4 + [_P],
     # gm, wflip, nbr, valid, dx, n, cin, cout, is_bf16, stream
     "conv3_bwd_dx": [_P] * 5 + [_I] * 4 + [_P],
     # x, gm, nbr, partials, dw, n, cin, cout, splits, rows_per_split,

@@ -13,8 +13,10 @@ avg_pool2.
 
 Bound on the H100: the gather of up to K input rows per output row. The
 weighted case shares kernel 1's gather-GEMM body (csrc/gather_gemm.cuh) under
-its own entry point; the sum is a gather-reduce with one thread per output
-element and a fixed offset order (csrc/k_apply.cu).
+its own entry point; the sum (at most 8 offsets: the pools' children) is a
+gather-reduce with a group of lanes per output row, 16 bytes a lane, and a
+fixed offset order, so its output is the twin's bit for bit
+(csrc/k_apply.cu, csrc/row_gather.cuh).
 
 `k_apply` runs the plain twin `k_apply_plain` for CPU tensors only. For a
 CUDA tensor it launches one of the two kernels or raises. Each kernel has its
@@ -54,6 +56,9 @@ def _check(x, table, w, out_valid):
     n_out = table.shape[1]
     if out_valid.shape != (n_out,) or out_valid.dtype != torch.bool:
         raise ValueError("k_apply: out_valid must be (N_out,) bool")
+    if w is None and table.shape[0] > 8:
+        raise ValueError("k_apply: the unweighted sum takes at most 8 "
+                         "offsets")
     if w is not None and (w.shape[:2] != (table.shape[0], cin)
                           or w.dtype != x.dtype):
         raise ValueError(f"k_apply: w {tuple(w.shape)} {w.dtype} does not "

@@ -4,17 +4,21 @@ Replaces unscene3d_tpu/ops/segment_pool.py:tile_segment_sum (Pallas
 `_kernel`). Rows with valid=False, and ids outside [0, S), contribute
 nothing; the result is returned in x.dtype.
 
-Bound on the H100: one read of every valid row (105 MB for the bench scene's
-(204,800, 128) f32 mask features). To stay bitwise deterministic without
+Bound on the H100: one read of every valid row (52 MB for the bench scene's
+(204,800, 128) bf16 mask features). To stay bitwise deterministic without
 float atomics, the CUDA kernel (csrc/segment_sum.cu) walks each segment's
-rows in a stable row order sorted by segment, with per-segment offsets into
-it; the collate precomputes both on the host (`segment_order`), static per
-batch like `seg_counts`.
+rows in a stable row order sorted by segment (`segment_order`), cut into
+pieces of at most ROWS_PER_PIECE rows (`segment_pieces`), so that one large
+segment spreads over many warps: pass 1 sums each piece into an f32
+scratch, pass 2 adds each segment's pieces in order and rounds once. The
+collate builds both tables on the host, static per batch like
+`seg_counts`.
 
 `segment_sum` runs the plain twin `segment_sum_plain` for CPU tensors only.
-For a CUDA tensor it launches the kernel or raises; `segment_sum.launches`
-counts the launches. When x requires grad the sum runs inside an autograd
-Function whose backward is the gather g[ids[i]] * ok[i] in plain torch
+For a CUDA tensor it launches the kernel's two passes or raises;
+`segment_sum.launches` counts the calls that launch them (one per call).
+When x requires grad the sum runs inside an autograd Function whose
+backward is the gather g[ids[i]] * ok[i] in plain torch
 (segment_pool.py:_vjp_bwd).
 """
 
@@ -26,6 +30,11 @@ import torch
 from unscene3d_torch.ops import _build
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
+# rows of a pass-1 piece (a block of 4 warps, 4 tiles of 32 rows each): the
+# bench scene's largest segment (5,310 rows) spreads over 11 blocks; the
+# fastest of 128-1024 on the bench scene and the train batch in both dtypes
+# (bench/reduce_times.py --rows-per-piece, PERF.md)
+ROWS_PER_PIECE = 512
 
 
 def segment_order(ids: np.ndarray, num_segments: int,
@@ -45,6 +54,24 @@ def segment_order(ids: np.ndarray, num_segments: int,
     return rows.astype(np.int32), offsets.astype(np.int32)
 
 
+def segment_pieces(offsets: np.ndarray, rows: int = ROWS_PER_PIECE
+                   ) -> np.ndarray:
+    """Pieces of the order for the kernel, (S + 1) + (P + 1) int32:
+    first[s], the index of segment s's first piece (first[S] = P), then
+    bounds[p], piece p's first position in the order (bounds[P] = M).
+    Segment s's run offsets[s]:offsets[s + 1] is cut into ceil(count /
+    rows) pieces of `rows` positions, the last one shorter; an empty
+    segment has none."""
+    offsets = np.asarray(offsets, np.int64)
+    counts = np.diff(offsets)
+    n = -(-counts // rows)
+    first = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(n, out=first[1:])
+    seg = np.repeat(np.arange(len(counts)), n)
+    starts = offsets[seg] + rows * (np.arange(first[-1]) - first[seg])
+    return np.concatenate([first, starts, offsets[-1:]]).astype(np.int32)
+
+
 def segment_sum_plain(x, ids, num_segments, valid=None):
     """Plain PyTorch twin: index_add_ in f32 with invalid / out-of-range rows
     routed to a trash segment."""
@@ -61,11 +88,12 @@ def segment_sum_plain(x, ids, num_segments, valid=None):
 
 class _SegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, ids, num_segments, valid, order, offsets):
+    def forward(ctx, x, ids, num_segments, valid, order, offsets, pieces):
         ctx.save_for_backward(ids, valid)
         ctx.num_segments = num_segments
         ctx.dtype = x.dtype
-        return _segment_sum(x, ids, num_segments, valid, order, offsets)
+        return _segment_sum(x, ids, num_segments, valid, order, offsets,
+                            pieces)
 
     @staticmethod
     def backward(ctx, g):
@@ -76,39 +104,56 @@ class _SegmentSum(torch.autograd.Function):
             ok = ok & valid
         safe = torch.where(ok, ids, torch.zeros_like(ids))
         dx = g[safe] * ok[:, None].to(g.dtype)
-        return dx.to(ctx.dtype), None, None, None, None, None
+        return dx.to(ctx.dtype), None, None, None, None, None, None
 
 
-def segment_sum(x, ids, num_segments, valid, order, offsets):
+def segment_sum(x, ids, num_segments, valid, order, offsets, pieces=None):
     """x: (N, C) f32/bf16; ids: (N,) int; valid: (N,) bool or None;
-    order/offsets: `segment_order(ids, num_segments, valid)` as int32
-    tensors on x's device, the rows the CUDA kernel walks (the twin reads
-    ids and valid instead). Returns (num_segments, C) in x.dtype."""
+    order/offsets: `segment_order(ids, num_segments, valid)` and pieces:
+    `segment_pieces(offsets)`, as int32 tensors on x's device, the rows the
+    CUDA kernel walks (the twin reads ids and valid instead); without
+    pieces the wrapper builds them from offsets on the host, which copies
+    offsets to the host and so waits for the card on every such call (the
+    collate's `SceneBatch.seg_pieces` avoids it). Returns (num_segments, C)
+    in x.dtype."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return _SegmentSum.apply(x, ids, num_segments, valid, order, offsets)
-    return _segment_sum(x, ids, num_segments, valid, order, offsets)
+        return _SegmentSum.apply(x, ids, num_segments, valid, order, offsets,
+                                 pieces)
+    return _segment_sum(x, ids, num_segments, valid, order, offsets, pieces)
 
 
-def _segment_sum(x, ids, num_segments, valid, order, offsets):
+def _int32_on(t, x):
+    return (t.dtype == torch.int32 and t.device == x.device
+            and t.is_contiguous())
+
+
+def _segment_sum(x, ids, num_segments, valid, order, offsets, pieces):
     if x.device.type == "cpu":
         return segment_sum_plain(x, ids, num_segments, valid)
     if x.device.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {x.device}")
     if x.dtype not in _SUPPORTED or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("segment_sum: x must be contiguous (N, C) f32/bf16")
-    if (order.dtype != torch.int32 or offsets.dtype != torch.int32
-            or offsets.shape != (num_segments + 1,)
-            or order.device != x.device or offsets.device != x.device
-            or not order.is_contiguous() or not offsets.is_contiguous()):
+    if (not _int32_on(order, x) or not _int32_on(offsets, x)
+            or offsets.shape != (num_segments + 1,)):
         raise ValueError("segment_sum: order/offsets must be int32 on x's "
                          "device, offsets of length num_segments + 1")
+    if pieces is None:
+        pieces = torch.from_numpy(segment_pieces(offsets.cpu().numpy())).to(
+            x.device)
+    num_pieces = pieces.shape[0] - num_segments - 2
+    if not _int32_on(pieces, x) or pieces.dim() != 1 or num_pieces < 0:
+        raise ValueError("segment_sum: pieces must be segment_pieces(offsets)"
+                         " as int32 on x's device")
     c = x.shape[1]
     out = torch.empty(num_segments, c, dtype=x.dtype, device=x.device)
     if num_segments == 0 or c == 0:
         return out
+    partial = torch.empty(num_pieces, c, dtype=torch.float32, device=x.device)
     code = _build.load().segment_sum(
-        _build.ptr(x), _build.ptr(order), _build.ptr(offsets), _build.ptr(out),
-        num_segments, c, int(x.dtype == torch.bfloat16), _build.stream_of(x))
+        _build.ptr(x), _build.ptr(order), _build.ptr(pieces),
+        _build.ptr(partial), _build.ptr(out), num_segments, num_pieces, c,
+        int(x.dtype == torch.bfloat16), _build.stream_of(x))
     _build.check(code, "segment_sum")
     segment_sum.launches += 1
     return out
