@@ -211,7 +211,8 @@ def phase_build():
 
 
 def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
-             other=None, equal_rows=None, twin_bitwise=False):
+             other=None, equal_rows=None, other_rows=None,
+             twin_bitwise=False):
     """Run kernel twice (bitwise equal), compare with the twin (bitwise
     where twin_bitwise: the same f32 adds in the same order), time both.
     work = (bytes moved, FLOPs done, dtype of the products) gives the bound:
@@ -219,7 +220,9 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
     rate for that type (FLOPs may be a dict by dtype, whose times add). library: one PyTorch call computing the same
     function, timed only. other = (name, fn): another kernel of the port
     that computes the same function, held to the same tolerance and
-    timed; equal_rows: a row mask on which the two must be bitwise equal."""
+    timed (on the rows of other_rows only where given: kernel 9's `full`
+    lacks the spilled pairs); equal_rows: a row mask on which the two must
+    be bitwise equal."""
     got = kernel()
     again = kernel()
     torch.cuda.synchronize()
@@ -253,7 +256,8 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
     if other is not None:
         other_name, other_fn = other
         alt = other_fn()
-        other_err = (got.float() - alt.float()).abs().max().item()
+        held = slice(None) if other_rows is None else other_rows
+        other_err = (got[held].float() - alt[held].float()).abs().max().item()
         out["other_ms"] = cuda_ms(other_fn, spin=True)
         extra += (f" vs {other_name}: max_rel_err={other_err / scale:.3e} "
                   f"{other_name}_ms={out['other_ms']:.3f} (ratio "
@@ -1232,9 +1236,11 @@ def phase_proto(dev):
     """The two prototype entry points at full size (the bench scene's level
     0), their launch counts read around exactly those two calls; then each
     variant of kernel 9 and kernel 8 against its twin with its bound, `full`
-    plus the spilled pairs' products against kernel 1, kernel 8 against
-    kernel 7 without an epilogue on the occupied cells, and cuDNN's conv3d
-    on the same bricks as kernel 8's library call."""
+    bitwise kernel 1 (no epilogue, timed beside it) on the valid rows
+    without a spilled pair and, plus the spilled pairs' products, within
+    tolerance of it on every valid row, kernel 8 against kernel 7 without an
+    epilogue on the occupied cells, and cuDNN's conv3d on the same bricks as
+    kernel 8's library call."""
     from unscene3d_torch.bench import proto_brick, proto_win_decompose
     from unscene3d_torch.ops import brick_engine as be
     from unscene3d_torch.ops.conv3 import conv3_fwd
@@ -1261,12 +1267,14 @@ def phase_proto(dev):
             raise AssertionError(f"prototype paths: {k} launched {n} times, "
                                  f"expected {want.get(k, 0)}")
     ms = split["ms"]
-    log(f"kernel 9 split at L0 ({split['rows']} rows, 128->128 bf16, "
-        f"{split['spilled_pairs']} spilled pairs): full {ms['full']:.3f}ms = "
-        f"centre {ms['dma_only']:.3f} + rows and products; without the "
-        f"products (no_gemm) {ms['no_gemm']:.3f}, with contiguous rows "
-        f"(no_select) {ms['no_select']:.3f}, with one table column "
-        f"(no_onehot) {ms['no_onehot']:.3f}; kernel 1 {ms['conv3_fwd']:.3f}")
+    log(f"kernel 9 split of kernel 1's ring body at L0 ({split['rows']} "
+        f"rows, 128->128 bf16, {split['spilled_pairs']} spilled pairs, spin-"
+        f"timed): full {ms['full']:.3f}ms (kernel 1 {ms['conv3_fwd']:.3f}, "
+        f"ratio {ms['full'] / ms['conv3_fwd']:.3f}) = centre "
+        f"{ms['dma_only']:.3f} + rows and products; without the products "
+        f"(no_gemm) {ms['no_gemm']:.3f}, with contiguous rows (no_select) "
+        f"{ms['no_select']:.3f}, with one table column (no_onehot) "
+        f"{ms['no_onehot']:.3f}")
 
     res = {"win_decompose": {}, "brick_conv_proto": {}}
     x, w, tb, wg = wcase.x, wcase.w, wcase.tables, wcase.graph
@@ -1286,12 +1294,21 @@ def phase_proto(dev):
                     + out_b, {bf16: centre, torch.float32: hit * cout}),
         "dma_only": (nbytes(x) + cin * cout * 2 + out_b, centre),
     }
+    # kernel 1's rows: valid, and in no spilled pair (the pairs `full` lacks)
+    spilled = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    spilled[torch.from_numpy(wg.spill_out[wg.spill_rows >= 0]).to(
+        dev).long()] = True
+    k1_rows = wcase.valid & ~spilled
     for v in VARIANTS:
+        vs_k1 = {} if v != "full" else dict(
+            other=("conv3_fwd",
+                   lambda: conv3_fwd(x, w, wcase.nbr_idx, wcase.valid)),
+            equal_rows=k1_rows, other_rows=k1_rows)
         res["win_decompose"][v] = _compare(
             f"win_decompose {v} L0 {cin}->{cout}", bf16,
             lambda: win_conv_variant(x, w, tb, v),
             lambda: win_conv_variant_plain(x, w, tb, v),
-            work=(*work[v], bf16))
+            work=(*work[v], bf16), **vs_k1)
     full = win_conv_variant(x, w, tb, "full").float()
     k1 = conv3_fwd(x, w, wcase.nbr_idx, wcase.valid).float()
     total = full + spill_products(x, w, wg)
@@ -1304,7 +1321,7 @@ def phase_proto(dev):
     if not err <= KERNEL_TOL[bf16] * scale:
         raise AssertionError(f"full + spills vs kernel 1: {err} > "
                              f"{KERNEL_TOL[bf16]} * {scale}")
-    del wcase, x, w, tb, full, k1, total, in_window
+    del wcase, x, w, tb, full, k1, total, in_window, spilled, k1_rows
     torch.cuda.empty_cache()
 
     g, w = bcase.g, bcase.w
@@ -1783,8 +1800,9 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in res[name].values()),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=m["library_ms"]))
-        if name == "csr_conv3":   # beside kernel 1, same inputs
+        if name in ("csr_conv3", "win_decompose"):   # beside kernel 1
             kernels[-1].update(kernel1_ms=m["other_ms"])
+        if name == "csr_conv3":
             log(f"kernel 6 (csr_conv3) bench L0 128->96 +res bf16: "
                 f"{m['ms']:.3f} ms, kernel 1 {m['other_ms']:.3f} ms (ratio "
                 f"{m['ms'] / m['other_ms']:.3f}), bound {m['bound_ms']:.4f}")

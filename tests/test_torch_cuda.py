@@ -13,7 +13,8 @@ by one ulp where the two f32 sums straddle a rounding boundary. dW (kernel
 inputs (FMA), 5e-4 for bf16 (the tensor cores' f32 accumulation does not
 round to nearest). Each kernel also runs twice and must give bitwise-equal
 output. Kernels 6 (compacted valid pairs) and 7 (dense bricks) compute the
-same function as kernel 1 and are also held against it on the same inputs.
+same function as kernel 1 and are also held against it on the same inputs;
+so is kernel 9's `full` (window tables), on the rows without a spilled pair.
 """
 
 import dataclasses
@@ -359,6 +360,52 @@ def test_proto_brick_conv_matches_twin(cuda, levels, dtype, cin, cout,
     _close(got, proto_brick_conv_plain(gb, w), dtype)
     occ = bg.occ[..., None].to(got.dtype)
     assert torch.equal(got * occ, be.brick_conv3(gb, w, bg))
+
+
+@pytest.mark.parametrize("cin,cout,group,w_sub", [
+    (40, 24, 2, 256),     # ragged Cin chunk and Cout tile, many spills
+    (128, 128, 8, 384),   # the prototype's widths and tables
+    (36, 20, 2, 256),     # scalar rows, weights and no_gemm's row sums
+])
+def test_win_decompose_matches_twin_and_kernel_1(cuda, levels, cin, cout,
+                                                 group, w_sub):
+    """Kernel 9 (bf16) in every variant against its twin and bitwise
+    repeatable, with noise on x's padding rows; `full` bitwise kernel 1 (no
+    epilogue) on the valid rows without a spilled pair, the same ring main
+    loop on the rows the window tables name."""
+    from unscene3d_torch.ops.kernel_maps import build_neighbor_map_padded
+    from unscene3d_torch.ops.win_decompose import (VARIANTS, WinTables,
+                                                   win_conv_variant,
+                                                   win_conv_variant_plain)
+    from unscene3d_torch.ops.win_graph import build_win_graph
+
+    lvl = levels[0]
+    coords = lvl.coords[lvl.valid].numpy()
+    align = 256 * group
+    n_pad = -(-(len(coords) + 1) // align) * align
+    nbr = build_neighbor_map_padded(coords, n_pad)
+    wg = build_win_graph(nbr, n_pad, w_sub=w_sub,
+                         w_union=4096 + (group - 1) * 256, group=group)
+    tables = WinTables.from_graph(wg).to(cuda)
+    g = torch.Generator().manual_seed(cin)
+    x = torch.randn(n_pad, cin, generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(cuda,
+                                                           torch.bfloat16)
+    for variant in VARIANTS:
+        got = win_conv_variant(x, w, tables, variant)
+        again = win_conv_variant(x, w, tables, variant)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), variant
+        _close(got, win_conv_variant_plain(x, w, tables, variant),
+               torch.bfloat16)
+    valid = (torch.arange(n_pad) < len(coords)).to(cuda)
+    spilled = torch.zeros(n_pad, dtype=torch.bool)
+    spilled[torch.from_numpy(wg.spill_out[wg.spill_rows >= 0]).long()] = True
+    rows = valid & ~spilled.to(cuda)
+    full = win_conv_variant(x, w, tables, "full")
+    k1 = conv3_fwd(x, w, torch.from_numpy(nbr).to(cuda), valid)
+    assert rows.sum() > len(coords) // 2
+    assert torch.equal(full[rows], k1[rows])
 
 
 def test_csr_autograd_function_on_the_card(cuda, levels):

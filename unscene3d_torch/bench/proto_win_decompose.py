@@ -9,11 +9,15 @@ level's spilled pairs); no_select reads contiguous rows in place of the
 scattered ones, no_onehot looks one column of the table up for every offset,
 no_gemm adds the selected rows without multiplying them, dma_only keeps the
 centre product alone. Only `full` is right; the others are wrong by
-construction and are timed against it. `harness` is the timing loop around
-nothing. Kernel 1 (`conv3_fwd`) runs on the same x and w, and the level's
+construction and are timed against it. Kernel 9 runs kernel 1's ring main
+loop, so the variants split kernel 1's own body: scattered read, per-offset
+lookup, products, centre. `harness` is the timing loop around nothing.
+Kernel 1 (`conv3_fwd`) runs on the same x and w, and the level's
 spilled-pair count is printed, so that the split reads against the kernel
-the model runs. Times are CUDA events, median of 10 (the TPU prototype
-chained 8 calls to defeat its compiler's caching; events need no chain).
+the model runs. Times are CUDA events, median of 10, each run behind a spin
+kernel (`bench/timing.py`, `spin=True`), kernel 1 on the same timer (the TPU
+prototype chained 8 calls to defeat its compiler's caching; events need no
+chain).
 """
 
 from __future__ import annotations
@@ -86,14 +90,14 @@ def run(device="cuda", variants=VARIANTS, cin: int = 128, group: int = 8,
         f"{wg.num_spills} spilled pairs ({clock_name(device)})")
     ms = {}
     if harness:
-        ms["harness"] = device_ms(lambda: None, device, reps)
+        ms["harness"] = device_ms(lambda: None, device, reps, spin=True)
     for variant in variants:
         ms[variant] = device_ms(
             lambda: win_conv_variant(case.x, case.w, case.tables, variant),
-            device, reps)
+            device, reps, spin=True)
     ms["conv3_fwd"] = device_ms(
         lambda: conv3_fwd(case.x, case.w, case.nbr_idx, case.valid), device,
-        reps)
+        reps, spin=True)
     for name, t in ms.items():
         log(f"{name:>10}: {t:.3f}ms")
     return dict(rows=case.x.shape[0], spilled_pairs=wg.num_spills, ms=ms,

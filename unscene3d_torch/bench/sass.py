@@ -12,9 +12,12 @@ matrix transposes (MOVM), asynchronous copies (LDGSTS) and barriers (BAR),
 with a digest of its instruction text that tells two builds of the same
 machine code from two that differ. Needs the CUDA toolkit, not a GPU.
 `ring_kernel` selects the bodies that share the ring main loop
-(`gather_gemm.cuh:ring_main_loop`): kernel 1's `gather_gemm_ring_kernel`
-and kernel 6's `csr_conv_ring_kernel`, one line per tile (`RingTile`:
-bf16, `FmaRingTile`: f32) and Cout width.
+(`gather_gemm.cuh:ring_main_loop`): kernel 1's `gather_gemm_ring_kernel`,
+kernel 6's `csr_conv_ring_kernel` and kernel 9's
+`win_decompose_ring_kernel<V, RingTile<NC>>` (V the variant, 0-4), one line
+per tile (`RingTile`: bf16, `FmaRingTile`: f32) and Cout width. A kernel in
+an anonymous namespace (kernels 6 and 9) carries a hash in its mangled name
+that differs between two checkouts: compare them by the rest of the name.
 """
 
 from __future__ import annotations

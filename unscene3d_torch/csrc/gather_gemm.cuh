@@ -56,10 +56,15 @@
 // fmaf(0, w, acc) == acc, so the f32 result does not depend on the tiling.
 // Kernel 6 (csr_conv.cu) runs the same main loop (ring_main_loop) in both
 // dtypes behind a prologue of its own that fills the row table from pair
-// tables. Kernel 9
-// (win_decompose.cu) shares the 128 x 64 tile helpers below; kernels 7 and
-// 8 (brick_tile.cuh) share the epilogue, the accumulator fragment and the
-// 16-byte staging helpers.
+// tables. Kernel 9 (win_decompose.cu, bf16), which replaces the TPU
+// prototype benchmarks/proto_win_decompose.py:_kernel, runs it behind a
+// prologue that fills the row table from that kernel's window tables; its
+// bound is kernel 1's, unchanged, and its variants take this body apart:
+// no_select removes the scattered read (contiguous rows), no_onehot the
+// per-offset lookup (one table column), no_gemm the off-centre products
+// (their rows are summed instead, through the loop's hook), dma_only all
+// but the centre product. Kernels 7 and 8 (brick_tile.cuh) share the
+// epilogue, the accumulator fragment and the 16-byte staging helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -107,83 +112,8 @@ __device__ __forceinline__ void epilogue_store(
   out[off] = from_f32<T>(y * vm);
 }
 
-// The 128 x 64 tensor-core tile of kernel 9 (win_decompose.cu): each of
-// the 8 warps owns a 32 x 32 sub-tile (2 x 2 fragments) and the
-// accumulators go through shared memory to the epilogue.
-constexpr int kTcM = 128, kTcN = 64, kTcK = 32;
-constexpr int kTcLdA = kTcK + 8;   // bf16 leading dims: multiples of 8 and
-constexpr int kTcLdB = kTcN + 8;   // 32-byte aligned fragment rows
-constexpr int kTcLdC = kTcN + 4;   // f32 leading dim: a multiple of 4
-// shared memory of a tensor-core block: the A and B staging, reused by the
-// f32 accumulator tile after the main loop
-constexpr int kTcABytes = kTcM * kTcLdA * 2;
-constexpr int kTcBBytes = kTcK * kTcLdB * 2;
-constexpr int kTcCBytes = kTcM * kTcLdC * 4;
-constexpr int kTcBytes = kTcABytes + kTcBBytes > kTcCBytes
-                             ? kTcABytes + kTcBBytes : kTcCBytes;
-
-// Stage w[k, c0 : c0 + kTcK, col0 : col0 + kTcN] into Bs (bf16, leading
-// dimension kTcLdB, zero past the edges).
-template <typename T>
-__device__ __forceinline__ void stage_weights_tc(T* Bs,
-                                                 const T* __restrict__ w,
-                                                 int k, int c0, int col0,
-                                                 int cin, int cout) {
-  const T zero = __float2bfloat16(0.f);
-  for (int e = threadIdx.x; e < kTcK * kTcN; e += kThreads) {
-    const int kk = e / kTcN;
-    const int n = e % kTcN;
-    const int c = c0 + kk;
-    const int co = col0 + n;
-    Bs[kk * kTcLdB + n] = (c < cin && co < cout)
-                              ? w[((size_t)k * cin + c) * cout + co]
-                              : zero;
-  }
-}
-
 using AccFragment =
     nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>;
-
-// One kTcK chunk on the tensor cores: the warp's 32 x 32 sub-tile at (wr,
-// wc) of the 128 x 64 block tile, acc (2 x 2 fragments) += As @ Bs.
-template <typename T>
-__device__ __forceinline__ void wmma_chunk(const T* As, const T* Bs,
-                                           AccFragment (&acc)[2][2], int wr,
-                                           int wc) {
-  using namespace nvcuda;
-#pragma unroll
-  for (int ks = 0; ks < kTcK; ks += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> a[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> b[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(a[i], As + (wr + 16 * i) * kTcLdA + ks, kTcLdA);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(b[j], Bs + ks * kTcLdB + wc + 16 * j, kTcLdB);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-  }
-}
-
-// Spill the warps' accumulator fragments into the block's f32 tile Cs
-// (leading dimension kTcLdC), which may reuse the A/B staging: call after
-// the main loop's last barrier; ends on a barrier.
-__device__ __forceinline__ void store_acc_tile(float* Cs,
-                                               AccFragment (&acc)[2][2],
-                                               int wr, int wc) {
-  using namespace nvcuda;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr + 16 * i) * kTcLdC + wc + 16 * j,
-                              acc[i][j], kTcLdC, wmma::mem_row_major);
-  __syncthreads();
-}
 
 // Copy 16 bytes global -> shared when `in` holds, else store 16 zero bytes.
 __device__ __forceinline__ void copy16(void* dst, const void* src, bool in) {
@@ -472,15 +402,23 @@ __device__ __forceinline__ void ring_live_lists(const int* group_live, int K,
   *n_live = n;
 }
 
-// The ring main loop of kernels 1 (2's weighted case and 4's dx) and 6, in
-// both dtypes (Tile: RingTile or FmaRingTile), after the block's prologue:
-// sidx is the block's table of x rows, row r of offset k at sidx[k * 128 +
-// r] (`sentinel`: none, staged as a zero row), live_k / live_g its n_live
-// live offsets in order with their live 32-row groups. Walks the live
-// (offset, Cin chunk) steps through the tile's ring of stages, then writes
-// the block's 128 rows x NC columns from (row0, col0) through the
-// epilogue.
-template <typename Tile>
+// The default hook of ring_main_loop: nothing between the accumulator
+// spill and the store out.
+struct RingNoHook {
+  __device__ __forceinline__ void operator()(float* /*Cs*/) const {}
+};
+
+// The ring main loop of kernels 1 (2's weighted case and 4's dx), 6 and 9,
+// in both dtypes (Tile: RingTile or FmaRingTile), after the block's
+// prologue: sidx is the block's table of x rows, row r of offset k at
+// sidx[k * 128 + r] (`sentinel`: none, staged as a zero row), live_k /
+// live_g its n_live live offsets in order with their live 32-row groups.
+// Walks the live (offset, Cin chunk) steps through the tile's ring of
+// stages, spills the accumulators into the f32 tile Cs (leading dimension
+// Tile::kLdC, over the ring), calls hook(Cs) (which, if it writes Cs, ends
+// on a barrier), then writes the block's 128 rows x NC columns from (row0,
+// col0) through the epilogue.
+template <typename Tile, typename Hook = RingNoHook>
 __device__ __forceinline__ void ring_main_loop(
     unsigned char* smem, const typename Tile::T* __restrict__ x,
     const typename Tile::T* __restrict__ w, const int* sidx,
@@ -489,7 +427,7 @@ __device__ __forceinline__ void ring_main_loop(
     const float* __restrict__ shift,
     const typename Tile::T* __restrict__ residual,
     typename Tile::T* __restrict__ out, int n_out, int sentinel, int cin,
-    int cout, int relu, int row0, int col0) {
+    int cout, int relu, int row0, int col0, const Hook& hook = Hook()) {
   using T = typename Tile::T;
   constexpr int NC = Tile::kNC;
   constexpr int kK = Tile::kK;
@@ -549,6 +487,7 @@ __device__ __forceinline__ void ring_main_loop(
   float* Cs = reinterpret_cast<float*>(smem);
   Tile::store(Cs, acc, wr, wc);
   __syncthreads();
+  hook(Cs);
 #pragma unroll 1   // rolled: 128 registers, two blocks on an SM
   for (int e = tid; e < kRingM * NC; e += kThreads) {
     const int r = e / NC;

@@ -54,9 +54,9 @@ _SIGNATURES = {
     "brick_conv3": [_P] * 7 + [_I] * 6 + [_P],
     # g, w, out, nb, cin, cout, is_bf16, stream
     "proto_brick_conv": [_P] * 3 + [_I] * 4 + [_P],
-    # x, w, r0, starts, lidx, out, n_pad, group, w_sub, cin, cout, variant,
-    # stream
-    "win_decompose": [_P] * 6 + [_I] * 6 + [_P],
+    # x, w, r0, starts, lidx, ones, out, n_pad, group, w_sub, cin, cout,
+    # variant, stream
+    "win_decompose": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 _LOCK = threading.Lock()

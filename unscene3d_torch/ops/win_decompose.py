@@ -16,14 +16,20 @@ accumulation, bf16 output:
     dma_only   x[i] @ w[13]
 
 Spilled pairs (lidx = -1) contribute nothing, so `full` is kernel 1 minus the
-level's spilled pairs; the other four are wrong by construction and exist to
-be timed against it (no scattered read, no per-offset lookup, no products,
-the centre alone). Rows are read wherever the tables point, padding rows
-included: x's padding rows are not assumed to be zero.
+level's spilled pairs: on every valid row without a spilled pair the CUDA
+kernel's `full` is bitwise kernel 1 (`ops/conv3.py:conv3_fwd`, no epilogue).
+The other four are wrong by construction and exist to be timed against it.
+Rows are read wherever the tables point, padding rows included: x's padding
+rows are not assumed to be zero.
 
-Bound on the H100: the scattered row read, which the variants measure. The
-CUDA kernel (csrc/win_decompose.cu) resolves rows through the tables and
-runs kernel 1's staged bf16 WMMA loop; see its header.
+The CUDA kernel (csrc/win_decompose.cu) replaces the TPU kernel with kernel
+1's ring main loop (`csrc/gather_gemm.cuh:ring_main_loop`, bf16 tile) behind
+a prologue of its own that fills each block's row table from the window
+tables; the bound is unchanged, the scattered row read. So the variants take
+kernel 1's own body apart: no_select removes its scattered read (contiguous
+rows), no_onehot its per-offset lookup (one table column), no_gemm its
+off-centre products (the rows are summed instead), dma_only everything but
+the centre product. See the kernel's header.
 
 `win_conv_variant` runs the plain twin `win_conv_variant_plain` for CPU
 tensors only. For a CUDA tensor it launches the kernel or raises;
@@ -50,6 +56,7 @@ class WinTables:
     r0: torch.Tensor       # (n_super,) int32
     starts: torch.Tensor   # (n_tiles, 3) int32
     lidx: torch.Tensor     # (n_pad, 26) int16
+    ones: torch.Tensor     # (n_pad,) uint8 all 1: the kernel's row mask
     group: int
     w_sub: int
 
@@ -59,12 +66,13 @@ class WinTables:
             raise ValueError("kernel 9 takes tile 256 and one uniform w_sub")
         t = torch.from_numpy
         return cls(r0=t(wg.r0), starts=t(wg.starts), lidx=t(wg.lidx),
+                   ones=torch.ones(wg.lidx.shape[0], dtype=torch.uint8),
                    group=wg.group, w_sub=wg.w_sub)
 
     def to(self, device) -> "WinTables":
         return dataclasses.replace(
             self, r0=self.r0.to(device), starts=self.starts.to(device),
-            lidx=self.lidx.to(device))
+            lidx=self.lidx.to(device), ones=self.ones.to(device))
 
 
 def _selected_rows(tables: WinTables, n_pad: int, k: int, variant: str):
@@ -127,11 +135,12 @@ def _check(x, w, tables: WinTables, variant: str):
     for name, t, shape, dtype in (
             ("r0", tables.r0, (n_tiles // g,), torch.int32),
             ("starts", tables.starts, (n_tiles, 3), torch.int32),
-            ("lidx", tables.lidx, (n_pad, 26), torch.int16)):
+            ("lidx", tables.lidx, (n_pad, 26), torch.int16),
+            ("ones", tables.ones, (n_pad,), torch.uint8)):
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"win_conv_variant: {name} {tuple(t.shape)} "
                              f"{t.dtype}, want {shape} {dtype}")
-    for t in (x, w, tables.r0, tables.starts, tables.lidx):
+    for t in (x, w, tables.r0, tables.starts, tables.lidx, tables.ones):
         if t.device != x.device or not t.is_contiguous():
             raise ValueError("win_conv_variant: tensors must be contiguous "
                              "on x's device")
@@ -150,7 +159,8 @@ def win_conv_variant(x, w, tables: WinTables, variant: str = "full"):
     out = torch.empty(n_pad, cout, dtype=x.dtype, device=x.device)
     code = _build.load().win_decompose(
         _build.ptr(x), _build.ptr(w), _build.ptr(tables.r0),
-        _build.ptr(tables.starts), _build.ptr(tables.lidx), _build.ptr(out),
+        _build.ptr(tables.starts), _build.ptr(tables.lidx),
+        _build.ptr(tables.ones), _build.ptr(out),
         n_pad, tables.group, tables.w_sub, cin, cout,
         VARIANTS.index(variant), _build.stream_of(x))
     _build.check(code, "win_decompose")
