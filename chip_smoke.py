@@ -10,7 +10,14 @@ level 0, the two prototype entry points `unscene3d_torch.bench.proto_*`
 row (64 scenes x 400 segments x 96 features) and the bench scene through
 `unscene3d_torch.pseudo.pipeline`; it checks card-vs-CPU parity on a
 mid-size scene and on 8 NCut scenes, and reports whether two train steps
-from the same state are bitwise equal (a printed finding).
+from the same state are bitwise equal (a printed finding). It also builds
+the native host library (`unscene3d_torch/native`, g++) that the collator's
+k3 maps and FPS seeds go through, asserts that it served every collate of
+the main path, and times each request by stage: collate (voxelize, k3 maps,
+FPS, the rest), transfer, forward, the device post-processing, the
+device-to-host copy and the host's segment-space tail, beside the
+full-resolution host route on the same forward (held to the reference's
+contract) and one request through the DBSCAN route.
 
     python3 chip_smoke.py
 
@@ -61,6 +68,14 @@ DW_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-4}
 # card (kernels) vs CPU (twins) on the whole f32 slice, relative to max|ref|:
 # 23 residual blocks and 12 attention rounds compound the f32 reordering
 SLICE_TOL = 1e-3
+# device-post route vs host route on one forward, the reference's contract
+# (tests/test_eval.py:99): masks and classes equal, scores to rtol 1e-5 (f32
+# sigmoid sums on the device, f64 on the host)
+ROUTE_RTOL = 1e-5
+# native library calls per single-scene collate: the k3 map of each of the
+# 5 levels, one FPS
+NATIVE_PER_COLLATE = {"build_neighbor_map_padded": 5,
+                      "furthest_point_sample": 1}
 # the f32 train step, card vs CPU with the samples, block masks and matching
 # replayed: losses relative to their max; each gradient relative to its
 # tensor's max plus GRAD_FLOOR of the largest gradient of the model
@@ -187,8 +202,14 @@ def phase_device():
 
 
 def phase_build():
+    from unscene3d_torch import native
     from unscene3d_torch.ops import _build
 
+    t0 = time.perf_counter()
+    path = native.build()
+    native.load()
+    log(f"native host library: {time.perf_counter() - t0:.1f}s "
+        f"({path.split('/')[-1]}, g++ {' '.join(native.FLAGS)})")
     t0 = time.perf_counter()
     _build.load()
     log(f"build: {time.perf_counter() - t0:.1f}s (nvcc ran: "
@@ -411,11 +432,47 @@ def phase_kernels(dev, batch, csr_batch):
     return res
 
 
+def _route_contract(dev_inst, host_inst, what):
+    """The device-post route against the host route on one forward: masks
+    and classes equal, scores within ROUTE_RTOL. A difference is printed
+    entry by entry (a near tie in the f32 top-k or score sort would show
+    here) before the phase fails."""
+    same_shape = dev_inst["masks"].shape == host_inst["masks"].shape
+    masks_eq = same_shape and np.array_equal(dev_inst["masks"],
+                                             host_inst["masks"])
+    classes_eq = np.array_equal(dev_inst["classes"], host_inst["classes"])
+    scores_ok = (len(dev_inst["scores"]) == len(host_inst["scores"])
+                 and np.allclose(dev_inst["scores"], host_inst["scores"],
+                                 rtol=ROUTE_RTOL, atol=0))
+    if masks_eq and classes_eq and scores_ok:
+        err = np.max(np.abs(dev_inst["scores"] - host_inst["scores"])
+                     / np.maximum(np.abs(host_inst["scores"]), 1e-30),
+                     initial=0.0)
+        return float(err)
+    for k in range(min(len(dev_inst["scores"]), len(host_inst["scores"]))):
+        row = (dev_inst["classes"][k], host_inst["classes"][k],
+               dev_inst["scores"][k], host_inst["scores"][k])
+        differs = (row[0] != row[1] or not np.isclose(
+            row[2], row[3], rtol=ROUTE_RTOL, atol=0) or (same_shape and (
+                dev_inst["masks"][:, k] != host_inst["masks"][:, k]).any()))
+        if differs:
+            log(f"  route mismatch {what}, instance {k}: class {row[0]} / "
+                f"{row[1]}, score {row[2]!r} / {row[3]!r}")
+    raise AssertionError(f"{what}: device-post route differs from the host "
+                         f"route (masks {masks_eq}, classes {classes_eq}, "
+                         f"scores {scores_ok})")
+
+
 def phase_slice(dev):
     """The main path: seeded random weights through the inference entry
-    point, bf16 for three scenes end to end, f32 for one. The launch counts
-    are read around exactly these requests; warm timings come after."""
+    point, bf16 for three scenes end to end, f32 for one, each served
+    through the device-post route and timed by stage; the host route runs
+    on the same forward and is held to the contract. The launch counts and
+    the native library's calls are read around exactly these requests; one
+    DBSCAN request and the warm timings come after."""
+    from unscene3d_torch import native
     from unscene3d_torch.data.synthetic import make_scene
+    from unscene3d_torch.eval.device_post import to_host
     from unscene3d_torch.inference import Predictor, build_mask3d, postprocess
 
     scenes = [make_scene(**BENCH_SCENE, seed=s) for s in range(3)]
@@ -424,10 +481,14 @@ def phase_slice(dev):
     requests = [(torch.bfloat16, 0), (torch.bfloat16, 1),
                 (torch.bfloat16, 2), (torch.float32, 0)]
 
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
     cnt = reset_counters()
+    native.reset_calls()
     served = []
     for dt, i in requests:
         p = preds[dt]
+        sec0 = native.seconds()
         t0 = time.perf_counter()
         batch, meta = p.collator([scenes[i]])
         t1 = time.perf_counter()
@@ -437,8 +498,23 @@ def phase_slice(dev):
         out = p.model(batch)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        inst = postprocess(out, meta)
+        ev0.record()
+        post = p.pack(out, batch)
+        ev1.record()
+        ev1.synchronize()
         t4 = time.perf_counter()
+        host = to_host(post)
+        t5 = time.perf_counter()
+        inst = p.tail(host, meta)
+        t6 = time.perf_counter()
+        ref = postprocess(out, meta)
+        t7 = time.perf_counter()
+        # the timed stages are the entry point's route
+        whole = p.post(out, batch, meta)
+        if not all(np.array_equal(whole[k], inst[k]) for k in inst):
+            raise AssertionError(f"Predictor.post differs from its stages "
+                                 f"({dt}, scene {i})")
+        sec = {k: v - sec0[k] for k, v in native.seconds().items()}
         for key in ("pred_logits", "pred_masks_seg", "pred_masks_vox"):
             if not torch.isfinite(out[key]).all():
                 raise AssertionError(f"{key} not finite ({dt}, scene {i})")
@@ -446,25 +522,84 @@ def phase_slice(dev):
             raise AssertionError(f"pred_logits {out['pred_logits'].shape}")
         if inst["masks"].shape != (len(scenes[i]["xyz"]), 100):
             raise AssertionError(f"instance masks {inst['masks'].shape}")
-        served.append((dt, i, batch, meta, inst, (t0, t1, t2, t3, t4)))
+        score_err = _route_contract(inst, ref, f"{str(dt)[6:]} scene {i}")
+        split = dict(
+            collate=t1 - t0, voxelize=p.collator.timings["voxelize"],
+            k3_maps=sec["build_neighbor_map_padded"],
+            fps=sec["furthest_point_sample"], h2d=t2 - t1, forward=t3 - t2,
+            device_post_ms=ev0.elapsed_time(ev1), d2h=t5 - t4,
+            d2h_bytes=nbytes(*post.values()), tail=t6 - t5,
+            e2e=t6 - t0, host_route=t7 - t6, score_err=score_err)
+        served.append((dt, i, batch, meta, inst, split))
+        del out, ref, post, whole
     launches = {k: fn.launches for k, fn in cnt.items()}
-    log(f"main path: {len(requests)} requests, launches {launches}")
+    calls = native.calls()
+    log(f"main path: {len(requests)} requests, launches {launches}, native "
+        f"host library calls {calls}")
     for k, per in PER_FORWARD.items():
         if launches[k] != per * len(requests):
             raise AssertionError(f"{k}: {launches[k]} launches, expected "
                                  f"{per} per forward x {len(requests)}")
+    for k, per in NATIVE_PER_COLLATE.items():
+        if calls[k] != per * len(requests):
+            raise AssertionError(f"native {k}: {calls[k]} calls, expected "
+                                 f"{per} per collate x {len(requests)}: a "
+                                 f"numpy twin served the card path")
 
-    for dt, i, batch, meta, inst, (t0, t1, t2, t3, t4) in served:
+    for dt, i, batch, meta, inst, sp in served:
         model = preds[dt].model
         warm = cuda_ms(lambda: model(batch), reps=5, warmup=1)
+        out = model(batch)
+        warm_post = cuda_ms(lambda: preds[dt].pack(out, batch), reps=10,
+                            warmup=2)
+        del out
+        ms = {k: 1e3 * v for k, v in sp.items()
+              if k not in ("device_post_ms", "d2h_bytes", "score_err")}
         log(f"scene {i} {str(dt)[6:]}: voxels={meta.num_voxels[0]} "
-            f"collate={1e3 * (t1 - t0):.0f}ms h2d={1e3 * (t2 - t1):.0f}ms "
-            f"forward(first)={1e3 * (t3 - t2):.1f}ms "
-            f"forward(warm, median of 5)={warm:.1f}ms "
-            f"post={1e3 * (t4 - t3):.0f}ms e2e={1e3 * (t4 - t0):.0f}ms "
-            f"instances={len(inst['scores'])} "
-            f"top score={float(np.max(inst['scores'], initial=0)):.4f}")
+            f"collate={ms['collate']:.1f}ms (voxelize {ms['voxelize']:.1f}, "
+            f"k3 maps {ms['k3_maps']:.1f}, FPS {ms['fps']:.1f}, rest "
+            f"{ms['collate'] - ms['voxelize'] - ms['k3_maps'] - ms['fps']:.1f}"
+            f") h2d={ms['h2d']:.1f}ms forward(first)={ms['forward']:.1f}ms "
+            f"forward(warm, median of 5)={warm:.1f}ms device post="
+            f"{sp['device_post_ms']:.3f}ms (first, CUDA events; warm median "
+            f"of 10 {warm_post:.3f}ms) d2h={ms['d2h']:.2f}ms "
+            f"({sp['d2h_bytes']} bytes) host tail={ms['tail']:.1f}ms "
+            f"e2e={ms['e2e']:.1f}ms; host route on the same forward "
+            f"{ms['host_route']:.1f}ms, equal masks and classes, scores "
+            f"max rel err {sp['score_err']:.2e} (rtol {ROUTE_RTOL:g}); "
+            f"instances={len(inst['scores'])} non-empty="
+            f"{int(inst['masks'].any(0).sum())} top score="
+            f"{float(np.max(inst['scores'], initial=0)):.4f}")
+    phase_dbscan(dev, preds[torch.bfloat16].model, scenes[0], served[0][4])
     return launches, preds, served
+
+
+def phase_dbscan(dev, model, scene, plain_inst):
+    """One bf16 request of bench scene 0 through Predictor(use_dbscan=True):
+    the host route with each query split into its DBSCAN clusters
+    (eps 0.95, min_points 1, conf/config_base_instance_segmentation.yaml).
+    Every query with a positive voxel yields at least one cluster, so the
+    instances are at least the plain route's non-empty masks."""
+    from unscene3d_torch.inference import Predictor
+
+    p = Predictor(model, dev, voxel_size=VOXEL, use_dbscan=True)
+    t0 = time.perf_counter()
+    out, batch, meta = p.run(scene)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    inst = p.post(out, batch, meta)
+    t2 = time.perf_counter()
+    plain = int(plain_inst["masks"].any(0).sum())
+    log(f"DBSCAN request, scene 0 bf16: collate+h2d+forward "
+        f"{1e3 * (t1 - t0):.1f}ms, post (d2h of the voxel logits, DBSCAN "
+        f"split, full-resolution tail) {1e3 * (t2 - t1):.1f}ms, e2e "
+        f"{1e3 * (t2 - t0):.1f}ms; instances {len(inst['scores'])} against "
+        f"{plain} non-empty masks of the plain route")
+    if inst["masks"].shape[0] != len(scene["xyz"]):
+        raise AssertionError(f"DBSCAN masks {inst['masks'].shape}")
+    if len(inst["scores"]) < plain:
+        raise AssertionError(f"DBSCAN route: {len(inst['scores'])} instances "
+                             f"< {plain} non-empty masks of the plain route")
 
 
 def _traced(fn, activities, reps=3):
@@ -1084,13 +1219,16 @@ def phase_slice_csr(dev, scene, preds):
     exactly this request; then the warm forward beside the default
     configuration's on the same scene, and the f32 forward with csr_levels
     against the f32 forward of the default configuration on the parity
-    scene (same weights, both on the card)."""
+    scene (same weights, both on the card). The request is served through
+    the device-post route, its collate through the native library."""
+    from unscene3d_torch import native
     from unscene3d_torch.data.synthetic import make_scene
-    from unscene3d_torch.inference import Predictor, build_mask3d, postprocess
+    from unscene3d_torch.inference import Predictor, build_mask3d
 
     p = Predictor(build_mask3d(torch.bfloat16, seed=0), dev, voxel_size=VOXEL,
                   csr_levels=CSR_LEVELS)
     cnt = reset_counters()
+    native.reset_calls()
     t0 = time.perf_counter()
     batch, meta = p.collator([scene])
     t1 = time.perf_counter()
@@ -1100,10 +1238,16 @@ def phase_slice_csr(dev, scene, preds):
     out = p.model(batch)
     torch.cuda.synchronize()
     t3 = time.perf_counter()
-    inst = postprocess(out, meta)
+    inst = p.post(out, batch, meta)
     t4 = time.perf_counter()
     launches = {k: fn.launches for k, fn in cnt.items()}
-    log(f"csr_levels={CSR_LEVELS} eval path: 1 request, launches {launches}")
+    calls = native.calls()
+    log(f"csr_levels={CSR_LEVELS} eval path: 1 request, launches {launches}"
+        f", native host library calls {calls}")
+    for k, per in NATIVE_PER_COLLATE.items():
+        if calls[k] != per:
+            raise AssertionError(f"csr_levels collate: native {k} called "
+                                 f"{calls[k]} times, expected {per}")
     for k, per in PER_FORWARD_CSR.items():
         if launches[k] != per:
             raise AssertionError(f"{k}: {launches[k]} launches, expected "
@@ -1131,7 +1275,7 @@ def phase_slice_csr(dev, scene, preds):
     model32 = preds[torch.float32].model
     ref = model32(preds[torch.float32].collator([small])[0].to(dev))
     got = Predictor(model32, dev, voxel_size=VOXEL,
-                    csr_levels=CSR_LEVELS).forward(small)[0]
+                    csr_levels=CSR_LEVELS).run(small)[0]
     for key in ("pred_logits", "pred_masks_seg", "pred_masks_vox"):
         a, b = got[key].float(), ref[key].float()
         if key == "pred_masks_vox":   # level 0 is padded to other row counts
@@ -1479,7 +1623,9 @@ def phase_pseudo_pipeline(dev):
     """The bench scene through PseudoMaskPipeline(modality="geom") at full
     width (Res16UNet34C, seeded random weights, res_2 features), bf16 and
     f32: launch counts read around exactly the first call of each, masks
-    (P, K) bool over the full cloud, a second call timed by stage."""
+    (P, K) bool over the full cloud, a second call timed by stage. The CSC
+    graph's k3 maps come from the native library (asserted)."""
+    from unscene3d_torch import native
     from unscene3d_torch.data.synthetic import make_scene
     from unscene3d_torch.ops.hashing import sparse_quantize
     from unscene3d_torch.pseudo.pipeline import PseudoMaskPipeline
@@ -1502,9 +1648,14 @@ def phase_pseudo_pipeline(dev):
         pipe = PseudoMaskPipeline(modality="geom", device=dev, dtype=dt,
                                   resolution_scale=2, voxel_size=VOXEL)
         cnt = reset_counters()
+        native.reset_calls()
         first = pipe.process_scenes([scene])
         torch.cuda.synchronize()
         got = {k: fn.launches for k, fn in cnt.items()}
+        maps = native.calls()["build_neighbor_map_padded"]
+        if maps != NATIVE_PER_COLLATE["build_neighbor_map_padded"]:
+            raise AssertionError(f"pseudo pipeline {dt}: the native k3 map "
+                                 f"served {maps} levels, expected 5")
         for k, per in PER_CSC_FORWARD.items():
             if got[k] != per:
                 raise AssertionError(f"pseudo pipeline {dt}: {k} launched "

@@ -1,7 +1,23 @@
 """Helpers shared by the PyTorch-port parity tests: JAX variables as plain
-numpy trees, with random BatchNorm state so folded epilogues do real work."""
+numpy trees, with random BatchNorm state so folded epilogues do real work,
+and a fixture that runs a module's torch ops on one thread."""
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch's CPU ops on one thread for the module that imports this. The
+    tiny models' ops are too small to gain from threads, and on a loaded
+    host (the suite's parallel workers) each multi-threaded op waits on its
+    descheduled threads: with every core of an 8-core host busy, the tiny
+    Mask3D forward took ~0.2 s on one thread and ~15 s on eight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_tree(tree):

@@ -1,12 +1,15 @@
 """The whole Mask3D eval forward of the PyTorch port against the JAX model,
-and the port's inference entry point and its own copy of the host
-post-processing against the JAX package's.
+in f32 and at bf16, and the port's inference entry point (device-post route
+and DBSCAN route) and its own copy of the host post-processing against the
+JAX package's.
 
 Small sizes, as tests/test_scan_decoder.py: Res16UNet14A, hidden 32, 8
 queries, 2 heads, voxel 0.12, 2 scenes of 1,500 points. Inputs come from a
 numpy seed; weights from the JAX init (with random BatchNorm statistics, so
 the folded epilogues do real work), carried across by models/weights.py.
-f32 tolerance rtol 2e-4 / atol 2e-5 (test_scan_decoder.py).
+f32 tolerance rtol 2e-4 / atol 2e-5 (test_scan_decoder.py). At bf16 the
+port is held to JAX at `jnp.bfloat16` within BF16_FACTOR times JAX's own
+bf16-vs-f32 spread on each output, measured in the test.
 """
 
 import jax
@@ -27,9 +30,14 @@ from unscene3d_torch.models.sparse_modules import SparseConv
 from unscene3d_torch.models.transformer_layers import Dense
 from unscene3d_torch.models.weights import load_flax_variables
 
-from tests._torch_jax import random_bn
+from tests._torch_jax import one_torch_thread, random_bn  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
+# port bf16 vs JAX bf16, as a multiple of max|JAX bf16 - JAX f32| per output:
+# both round the same f32 math to bf16 at other points (the port's kernels
+# sum in f32 and round once; XLA's CPU fusions round elsewhere), so each sits
+# about one bf16 spread from the other. Measured 0.7-1.4 (ROADMAP Queue 3).
+BF16_FACTOR = 2.0
 SMALL = dict(num_classes=3, hidden_dim=32, num_queries=8, num_heads=2,
              dim_feedforward=64, num_decoders=2)
 VOXEL = 0.12
@@ -103,6 +111,36 @@ def test_inference_instances_match_jax_postprocess(jax_f32):
     assert flips == 0, f"{flips} mask bits differ"
 
 
+def test_inference_dbscan_instances_match_jax_postprocess(jax_f32):
+    """Predictor(use_dbscan=True) against the JAX package's host route with
+    the DBSCAN split over the batch's raw voxel coords
+    (experiment.py:853-862): eps 0.25 and min_points 3 split the queries
+    into clusters with border and noise points."""
+    variables, apply, _ = jax_f32
+    scene = make_scene(num_points=1500, seed=5)
+    jbatch, jmeta = JaxCollator(voxel_size=VOXEL, fps_queries=8)([scene])
+    jout = apply(variables, jbatch)
+    n_vox = jmeta.num_voxels[0]
+    dbscan = dict(dbscan_eps=0.25, dbscan_min_points=3)
+    ref = eval_scene_predictions(
+        np.asarray(jout["pred_logits"][-1][0]),
+        np.asarray(jout["pred_masks_vox"][-1][:n_vox]),
+        inverse_map=jmeta.inverse_maps[0],
+        point2segment_full=jmeta.original_segments[0],
+        segment_connectivity=jmeta.segment_connectivity[0], use_dbscan=True,
+        vox_coords=np.asarray(jbatch.raw_coords[:n_vox]), **dbscan,
+        **EVAL_DEFAULTS)
+    got = Predictor(torch_model(variables), "cpu", voxel_size=VOXEL,
+                    fine_buckets=False, use_dbscan=True, **dbscan)(scene)
+    assert got["masks"].shape == ref["masks"].shape
+    assert ref["masks"].shape[1] > SMALL["num_queries"]
+    np.testing.assert_array_equal(got["classes"], ref["classes"])
+    np.testing.assert_allclose(got["scores"], ref["scores"], rtol=1e-4,
+                               atol=1e-6)
+    flips = int((got["masks"] != ref["masks"]).sum())
+    assert flips == 0, f"{flips} mask bits differ"
+
+
 @pytest.mark.parametrize("options", [
     EVAL_DEFAULTS,
     dict(EVAL_DEFAULTS, filter_instances=True, iou_threshold=0.6,
@@ -151,6 +189,28 @@ def test_bf16_forward_mirrors_jax_dtypes(scenes, jax_f32):
     got = out["backbone_features"].float().numpy()
     ref = ref32["backbone_features"]
     assert np.abs(got - ref).max() <= 0.05 * np.abs(ref).max()
+
+
+def test_bf16_forward_matches_jax_bf16(scenes, jax_f32):
+    """The port's bf16 eval forward against the JAX module at jnp.bfloat16,
+    same weights and batch: per output, max|port - JAX bf16| within
+    BF16_FACTOR x max|JAX bf16 - JAX f32|."""
+    variables, _, ref32 = jax_f32
+    jbatch, _ = JaxCollator(voxel_size=VOXEL, fps_queries=8)(scenes)
+    model16 = jax_model(jnp.bfloat16)
+    ref16 = jax.jit(lambda v, b: model16.apply(v, b, train=False,
+                                               is_eval=True))(variables, jbatch)
+    batch, _ = FreeMaskCollator(voxel_size=VOXEL, fps_queries=8)(scenes)
+    out = torch_model(variables, torch.bfloat16)(batch)
+    for key in ("backbone_features", "mask_features", "pred_logits",
+                "pred_masks_seg", "pred_masks_vox"):
+        r16 = np.asarray(ref16[key], np.float32)
+        got = out[key].float().numpy()
+        assert got.shape == r16.shape, key
+        spread = np.abs(r16 - ref32[key]).max()
+        err = np.abs(got - r16).max()
+        assert 0 < spread and np.isfinite(err), key
+        assert err <= BF16_FACTOR * spread, (key, err, spread)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -2,7 +2,10 @@
 unscene3d_tpu/data/collate.py:FreeMaskCollator, without crops, triplane maps
 or TPU tables).
 
-numpy only. With the same settings every table equals the JAX collator's
+numpy, and the port's native library (`unscene3d_torch/native`, C++) for
+the k3 maps and the FPS seeds, as the JAX collator calls its own;
+`native=False` runs their numpy twins instead. With the same settings every
+table equals the JAX collator's
 bitwise (tests/test_torch_collate.py): the voxelize step, the 5-level graph,
 segments and seg_valid, per-level scene tables, level_bounds, seg_counts,
 the host FPS seeds and, for scenes that carry instance `masks`, the targets.
@@ -17,10 +20,12 @@ collator buckets them for static shapes.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from unscene3d_torch import native as native_lib
 from unscene3d_torch.data.batch import SceneBatch, Targets
 from unscene3d_torch.ops.hashing import sparse_quantize
 from unscene3d_torch.ops.kernel_maps import build_sparse_graph
@@ -43,11 +48,15 @@ class CollateMeta:
     original_segments: list       # (P_b,) consecutive full-res segment ids
 
 
-def fps_numpy(xyz: np.ndarray, valid: np.ndarray, k: int) -> np.ndarray:
+def fps_numpy(xyz: np.ndarray, valid: np.ndarray, k: int,
+              native: bool = True) -> np.ndarray:
     """Iterative-argmax furthest point sampling (start at 0, f32 distances,
-    first-max ties), identical to the JAX collator's seeds. The (x - c)
-    squared-sum arithmetic is kept on purpose: an |x|^2 expansion would
-    change the f32 rounding and the seeds."""
+    first-max ties), identical to the JAX collator's seeds: the C++ loop
+    (`native/point_ops.cpp`) by default, the numpy loop with `native=False`.
+    The (x - c) squared-sum arithmetic is kept on purpose: an |x|^2
+    expansion would change the f32 rounding and the seeds."""
+    if native:
+        return native_lib.furthest_point_sample(xyz, np.asarray(valid), k)
     n = len(xyz)
     xyz = np.asarray(xyz, np.float32)
     mask_bias = np.where(valid, np.float32(0), -np.inf).astype(np.float32)
@@ -124,12 +133,15 @@ class FreeMaskCollator:
     """Collate a list of scene dicts (xyz (P,3), features (P,C), segments
     (P,), optional masks (P,K) bool with optional mask_labels (K,),
     segment_connectivity and name) into (SceneBatch of CPU tensors,
-    CollateMeta). Instances that voxelization empties are dropped."""
+    CollateMeta). Instances that voxelization empties are dropped. `native`
+    (default) builds the k3 maps and the FPS seeds in the C++ library;
+    False runs their numpy twins. `timings` holds the last call's seconds:
+    `voxelize` (quantize, dedup, relabel per scene) and `total`."""
 
     def __init__(self, voxel_size: float = 0.02, num_levels: int = 5,
                  seg_align: int = 64,
                  fine_buckets: bool = False, fps_queries: int = 100,
-                 csr_levels: tuple = ()):
+                 csr_levels: tuple = (), native: bool = True):
         self.voxel_size = voxel_size
         self.num_levels = num_levels
         self.seg_align = seg_align
@@ -137,8 +149,11 @@ class FreeMaskCollator:
         self.fps_queries = int(fps_queries)
         # levels whose k3 convs run over compacted valid pairs (kernel 6)
         self.csr_levels = tuple(csr_levels)
+        self.native = bool(native)
+        self.timings = {}
 
     def __call__(self, scenes: list[dict]) -> tuple[SceneBatch, CollateMeta]:
+        t0 = time.perf_counter()
         B = len(scenes)
         per_scene = []
         meta = CollateMeta([], [], [], [], [])
@@ -163,6 +178,7 @@ class FreeMaskCollator:
             meta.num_voxels.append(len(vox))
             meta.segment_connectivity.append(s.get("segment_connectivity"))
             meta.original_segments.append(_relabel(np.asarray(s["segments"])))
+        t_vox = time.perf_counter()
 
         coords_all = np.concatenate(
             [np.column_stack([np.full(len(p["coords"]), b, np.int32),
@@ -170,7 +186,8 @@ class FreeMaskCollator:
              for b, p in enumerate(per_scene)])
         levels = build_sparse_graph(coords_all, self.num_levels,
                                     fine_buckets=self.fine_buckets,
-                                    csr_levels=self.csr_levels)
+                                    csr_levels=self.csr_levels,
+                                    native=self.native)
         n0_pad = len(levels[0]["valid"])
 
         c_in = per_scene[0]["feats"].shape[1]
@@ -206,7 +223,7 @@ class FreeMaskCollator:
         c0 = levels[0]["coords"][:, 1:].astype(np.float32)
         fps_idx = np.stack([
             fps_numpy(c0[scene_idx[0][b]], scene_valid[0][b],
-                      self.fps_queries)
+                      self.fps_queries, self.native)
             for b in range(B)]).astype(np.int32)
 
         s_counts = [int(p["seg"].max()) + 1 if len(p["seg"]) else 0
@@ -236,4 +253,6 @@ class FreeMaskCollator:
             fps_idx=t(fps_idx), seg_order=t(seg_order),
             seg_offsets=t(seg_offsets),
             seg_pieces=t(segment_pieces(seg_offsets)), target=target)
+        self.timings = {"voxelize": t_vox - t0,
+                        "total": time.perf_counter() - t0}
         return batch, meta

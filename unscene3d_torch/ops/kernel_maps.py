@@ -1,6 +1,9 @@
 """Host-side kernel maps (counterpart of unscene3d_tpu/ops/kernel_maps.py):
-the k3 neighbour maps, the k2 child/parent maps and level padding, in numpy.
-The tables equal the JAX package's bitwise (tests/test_torch_collate.py).
+the k3 neighbour maps, the k2 child/parent maps and level padding. The k3
+maps come from the port's native library (`unscene3d_torch/native`) unless
+`native=False` asks for their numpy twin; the rest is numpy. The tables
+equal the JAX package's bitwise (tests/test_torch_collate.py,
+tests/test_torch_native.py).
 One addition: each level's one-hot parent tables for the transposed conv,
 built here once per batch instead of on the device at every up2. Levels
 named in `csr_levels` are padded to a multiple of 256 rows, as the JAX
@@ -13,6 +16,7 @@ import itertools
 
 import numpy as np
 
+from unscene3d_torch import native as native_lib
 from unscene3d_torch.ops.csr_conv import build_csr_graph
 from unscene3d_torch.ops.hashing import CoordHashTable, ravel_hash
 from unscene3d_torch.ops.sparse_graph import bucket_size
@@ -23,13 +27,18 @@ KERNEL3_OFFSETS = np.array(
     list(itertools.product((-1, 0, 1), repeat=3)), dtype=np.int32)  # (27, 3)
 
 
-def build_neighbor_map_padded(coords: np.ndarray, n_pad: int) -> np.ndarray:
+def build_neighbor_map_padded(coords: np.ndarray, n_pad: int,
+                              native: bool = True) -> np.ndarray:
     """(27, n_pad) int32 k3 map; misses and the padding tail point at row
-    n_pad-1. Sorted-key lookups, one vectorized searchsorted per offset."""
+    n_pad-1. The C++ map by default; `native=False` runs the numpy twin,
+    sorted-key lookups, one vectorized searchsorted per offset."""
     coords = np.asarray(coords, np.int32)
     n = len(coords)
     if n_pad <= n:
         raise ValueError("bucketing must leave at least one padding row")
+    if native:
+        return native_lib.build_neighbor_map_padded(
+            coords, KERNEL3_OFFSETS, n_pad, n_pad - 1)
     table = CoordHashTable(coords)
     out = np.full((27, n_pad), n_pad - 1, np.int32)
     query = coords.astype(np.int64)
@@ -67,13 +76,15 @@ def _downsample(coords: np.ndarray):
 
 def build_sparse_graph(coords: np.ndarray, num_levels: int = 5,
                        fine_buckets: bool = False,
-                       csr_levels: tuple = ()) -> list[dict]:
+                       csr_levels: tuple = (), native: bool = True
+                       ) -> list[dict]:
     """All levels of one batch as dicts of numpy arrays (the collate wraps
     them into LevelGraph tensors). coords: (N, 4) [b, x, y, z] voxel coords
     at stride 1, unpadded. Pads are `bucket_size(n + 1)` per level, aligned
     to 256 rows at the levels in `csr_levels` and to 128 elsewhere, as in
     the JAX collator without window levels; the levels in `csr_levels` get
-    the valid-pair tables `csr`."""
+    the valid-pair tables `csr`. `native` picks the k3 maps' C++ or numpy
+    path."""
     level_coords = [np.asarray(coords, dtype=np.int64)]
     parent_idxs, parent_offs = [], []
     for _ in range(num_levels - 1):
@@ -111,7 +122,7 @@ def build_sparse_graph(coords: np.ndarray, num_levels: int = 5,
             parent_off[:n] = parent_offs[li]
             up = up_tables_from_parents(parent_idx, parent_off, valid,
                                         pads[li + 1])
-        nbr_idx = build_neighbor_map_padded(lc, n_pad)
+        nbr_idx = build_neighbor_map_padded(lc, n_pad, native)
         levels.append(dict(
             coords=coords_p, valid=valid, nbr_idx=nbr_idx,
             child_idx=child, parent_idx=parent_idx, parent_offset=parent_off,

@@ -1,5 +1,8 @@
-"""Window tables of one level's k3 topology, in numpy (the port's copy of
-unscene3d_tpu/ops/window_conv.py:build_win_graph, the pure-numpy branches).
+"""Window tables of one level's k3 topology (the port's copy of
+unscene3d_tpu/ops/window_conv.py:build_win_graph). Its two inner passes run
+in the port's native library (`native/kernel_maps.cpp`: `win_lo_reg`,
+`win_fill_lidx`), as the reference's `win_tables_native` serves them;
+`native=False` runs their numpy twins.
 
 The TPU's k3 kernel streams one union window of `w_union` rows per
 supertile (G consecutive 256-row tiles) and selects each off-centre
@@ -19,6 +22,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from unscene3d_torch import native as native_lib
 
 TILE = 256
 
@@ -65,7 +70,8 @@ class WinGraph:
 
 def build_win_graph(nbr_idx: np.ndarray, n_pad: int, w_sub=384,
                     w_union: int = 4096, spill_plan: tuple | None = None,
-                    group: int = 1, tile: int = TILE) -> WinGraph:
+                    group: int = 1, tile: int = TILE,
+                    native: bool = True) -> WinGraph:
     """Window tables from a (27, n_pad) k3 neighbour map (missing ->
     n_pad - 1). The centre offset (13) is not tabled. `w_sub` is one width
     or (W_own, W_dx); `w_union` is clamped to n_pad; a group whose G * tile
@@ -73,7 +79,8 @@ def build_win_graph(nbr_idx: np.ndarray, n_pad: int, w_sub=384,
     amortizes the window read). The group must be a power of two: the
     reference halves any group the same way, and a group that is none (6
     -> 3) may stop dividing the level's tiles and trip its divisibility
-    assert, so the port raises ValueError for one up front."""
+    assert, so the port raises ValueError for one up front. `native` picks
+    the C++ or the numpy passes (bitwise equal)."""
     nbr_idx = np.asarray(nbr_idx)
     assert nbr_idx.shape[0] == 27 and nbr_idx.shape[1] == n_pad
     group, tile = int(group), int(tile)
@@ -103,14 +110,18 @@ def build_win_graph(nbr_idx: np.ndarray, n_pad: int, w_sub=384,
 
     BIG = np.int64(1 << 40)
     # per (tile, region) 32-aligned window starts, then the union start
-    lo_reg = np.full((3, n_tiles), BIG, np.int64)
-    for k in ks:
-        idx = nbr_idx[k].astype(np.int64)
-        valid = idx != (n_pad - 1)
-        per_tile = np.where(valid, idx, BIG).reshape(n_tiles, tile)
-        lo = per_tile.min(axis=1)
-        r = k // 9
-        lo_reg[r] = np.minimum(lo_reg[r], np.where(lo == BIG, BIG, lo & ~31))
+    if native:
+        lo_reg = native_lib.win_lo_reg(nbr_idx, n_pad, tile)
+    else:
+        lo_reg = np.full((3, n_tiles), BIG, np.int64)
+        for k in ks:
+            idx = nbr_idx[k].astype(np.int64)
+            valid = idx != (n_pad - 1)
+            per_tile = np.where(valid, idx, BIG).reshape(n_tiles, tile)
+            lo = per_tile.min(axis=1)
+            r = k // 9
+            lo_reg[r] = np.minimum(lo_reg[r],
+                                   np.where(lo == BIG, BIG, lo & ~31))
     tstart = np.arange(n_tiles, dtype=np.int64) * tile
     r0_tile = lo_reg.min(axis=0)
     r0_tile = np.where(r0_tile == BIG, tstart, r0_tile)
@@ -135,21 +146,26 @@ def build_win_graph(nbr_idx: np.ndarray, n_pad: int, w_sub=384,
         starts[:, r] = (lo - r0_of_tile).astype(np.int32)
         lo_of[r] = lo
 
-    lidx = np.full((n_pad, 26), -1, np.int16)
-    sp_out, sp_in, sp_k = [], [], []
-    for ki, k in enumerate(ks):
-        idx = nbr_idx[k].astype(np.int64)
-        valid = idx != (n_pad - 1)
-        r = k // 9
-        rel = idx - lo_of[r][tile_of]
-        ok = valid & (rel >= 0) & (rel < w_reg[r])
-        lidx[ok, ki] = rel[ok].astype(np.int16)
-        bad = valid & ~ok
-        if bad.any():
-            rows = np.nonzero(bad)[0]
-            sp_out.append(rows.astype(np.int32))
-            sp_in.append(idx[rows].astype(np.int32))
-            sp_k.append(np.full(len(rows), k, np.int32))
+    if native:
+        lidx, all_out, all_in, all_k = native_lib.win_fill_lidx(
+            nbr_idx, n_pad, tile, lo_of, w_reg)
+        sp_out, sp_in, sp_k = [all_out], [all_in], [all_k]
+    else:
+        lidx = np.full((n_pad, 26), -1, np.int16)
+        sp_out, sp_in, sp_k = [], [], []
+        for ki, k in enumerate(ks):
+            idx = nbr_idx[k].astype(np.int64)
+            valid = idx != (n_pad - 1)
+            r = k // 9
+            rel = idx - lo_of[r][tile_of]
+            ok = valid & (rel >= 0) & (rel < w_reg[r])
+            lidx[ok, ki] = rel[ok].astype(np.int16)
+            bad = valid & ~ok
+            if bad.any():
+                rows = np.nonzero(bad)[0]
+                sp_out.append(rows.astype(np.int32))
+                sp_in.append(idx[rows].astype(np.int32))
+                sp_k.append(np.full(len(rows), k, np.int32))
 
     # compact tile-sorted spill packing: tile t's pairs at 8-aligned slots
     # [q0[t], q0[t] + counts[t])
