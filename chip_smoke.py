@@ -17,7 +17,11 @@ the main path, and times each request by stage: collate (voxelize, k3 maps,
 FPS, the rest), transfer, forward, the device post-processing, the
 device-to-host copy and the host's segment-space tail, beside the
 full-resolution host route on the same forward (held to the reference's
-contract) and one request through the DBSCAN route.
+contract) and one request through the DBSCAN route. Last, it runs a
+self-training round through `unscene3d_torch.main_instance_segmentation`
+(round 1, the export, round 2 with the merge; f32, batch 8, on scenes of
+the train batch's size written in the reference's npy layout) and asserts
+a bitwise checkpoint restore, every export found and the kernels' launches.
 
     python3 chip_smoke.py
 
@@ -128,6 +132,23 @@ PER_TRAIN_STEP_CSR = dict(PER_TRAIN_STEP, conv3_fwd=48, conv3_bwd=24,
 # the CSC feature extractor (the backbone alone, multires mode): the 47 k3
 # convs and the 8 k2 convs; no pools, no segment sum
 PER_CSC_FORWARD = dict(PER_FORWARD, k_apply_sum=0, segment_sum=0)
+# the self-training round (phase_self_train): scenes of the train batch's
+# size, the same ones for train and validation; the overrides of
+# scripts/unsupervised/train_unscene3d.sh and of the export in
+# scripts/mask3d_DINO_CSC_self_train.sh
+SELF_TRAIN_SCENES = 8
+SELF_TRAIN_ROUND = [
+    "general.experiment_name=DINO_CSC_self_train",
+    "general.project_name=unscene3d", "general.eval_on_segments=true",
+    "general.train_on_segments=true", "general.num_targets=3",
+    "data.batch_size=8", "data.test_batch_size=1",
+    "data/collation_functions=freemask_voxelize_collate",
+    "data/datasets=freemask", "general.resume=True"]
+SELF_TRAIN_EXPORT = [
+    "general.train_mode=false", "general.experiment_name=DINO_CSC_self_train",
+    "general.save_for_freemask=true", "general.filter_out_instances=true",
+    "general.eval_on_segments=true", "general.num_targets=3",
+    "data/datasets=freemask"]
 # the pseudo row of bench.py: scenes x segments x features
 PSEUDO_ROW = dict(batch_scenes=64, num_segments=400)
 EIGH_SCENES = 16         # scenes of the row timed with the exact solver
@@ -1373,7 +1394,7 @@ def phase_train_f32(dev, batch):
     phase_train_repeat(dev, trainer, batch, "f32")
     _trace_step(trainer, batch, gen, "f32")
     log(f"phase train_f32: {time.perf_counter() - t_phase:.1f}s")
-    return launches
+    return launches, warm
 
 
 def phase_proto(dev):
@@ -1874,6 +1895,229 @@ def phase_train_parity(dev):
                              f"{p_err}")
 
 
+def _write_self_train_data(root):
+    """SELF_TRAIN_SCENES scenes of the train batch's size in the reference's
+    npy layout (tests/test_datasets.py:write_mask3d_dataset: [xyz, rgb
+    0-255, normal, segment, label, instance] and `_freemasks.npy`), the same
+    scenes in train_database.yaml and validation_database.yaml. Returns the
+    scenes' point counts by name."""
+    import os
+
+    import yaml
+
+    from unscene3d_torch.data.synthetic import make_scene
+
+    os.makedirs(f"{root}/train", exist_ok=True)
+    db, points = [], {}
+    for i in range(SELF_TRAIN_SCENES):
+        s = make_scene(**TRAIN_SCENE, seed=300 + i)
+        n = len(s["xyz"])
+        cols = np.hstack([
+            s["xyz"], s["colors"] * 255.0, np.tile([0, 0, 1.0], (n, 1)),
+            s["segments"][:, None], s["labels"][:, None],
+            s["instances"][:, None]]).astype(np.float32)
+        path = f"{root}/train/{i:04d}_00.npy"
+        np.save(path, cols)
+        np.save(path.replace(".npy", "_freemasks.npy"),
+                s["masks"].astype(np.float32))
+        db.append({"filepath": path,
+                   "raw_filepath": f"/x/scene{i:04d}_00/mesh.ply"})
+        points[f"scene{i:04d}_00"] = n
+    for mode in ("train", "validation"):
+        with open(f"{root}/{mode}_database.yaml", "w") as f:
+            yaml.safe_dump(db, f)
+    return points
+
+
+def phase_self_train(dev, card, f32_step_ms):
+    """The self-training round through the port's entry point,
+    `unscene3d_torch.main_instance_segmentation`, at the reference config
+    (Mask3D(Res16UNet34C) at conf/model/mask3d.yaml's widths, f32, batch 8,
+    the default augmentations, seeded random weights) on SELF_TRAIN_SCENES
+    train-batch-size scenes written in the reference's layout: round 1
+    (2 epochs of one step, one validation), the export, and round 2 from
+    round 1's best/ on the data set that merges the export. Times each
+    stage on the host clock; asserts a bitwise checkpoint restore into a
+    fresh trainer, every export found by the merge, the exported masks'
+    shapes and kernels 1-5's launch counts."""
+    import glob
+    import os
+    import tempfile
+
+    from unscene3d_torch.main_instance_segmentation import (build_experiment,
+                                                            get_parameters)
+    from unscene3d_torch.train import checkpoint as ckpt
+    from unscene3d_torch.train.loop import build_trainer
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        points = _write_self_train_data(f"{tmp}/data")
+        log(f"self-train data: {len(points)} scenes, "
+            f"{sorted(points.values())} points, written in "
+            f"{time.perf_counter() - t0:.1f}s")
+        data = [f"general.data_dir={tmp}/data",
+                f"data.datasets.validation_dataset.data_dir={tmp}/data",
+                f"data.datasets.test_dataset.data_dir={tmp}/data"]
+        r1 = f"{tmp}/round1"
+        cnt = reset_counters()
+        # scripts/unsupervised/train_unscene3d.sh's overrides
+        cfg = get_parameters(SELF_TRAIN_ROUND + data + [
+            f"general.save_dir={r1}", "trainer.max_epochs=2",
+            "trainer.check_val_every_n_epoch=2"])
+        t0 = time.perf_counter()
+        exp = build_experiment(cfg)
+        t_build = time.perf_counter() - t0
+        if exp.device != dev or exp.model.dtype != torch.float32:
+            raise AssertionError(f"self-train: {exp.device}, "
+                                 f"{exp.model.dtype}")
+        t0 = time.perf_counter()
+        trainer = exp.fit(seed=int(cfg.general.seed),
+                          resume=bool(cfg.general.resume),
+                          checkpoint=cfg.general.checkpoint)
+        t_fit = time.perf_counter() - t0
+        fit1, eval1, res1 = (dict(exp.fit_stats), dict(exp.eval_stats),
+                             exp.last_results)
+        n_steps = trainer.step
+        _self_train_report("round 1", exp, t_build, t_fit)
+
+        # a checkpoint restored into a fresh trainer is the saved state
+        t0 = time.perf_counter()
+        path = ckpt.save_checkpoint(f"{tmp}/probe", trainer)
+        torch.cuda.synchronize()
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes_ckpt = os.path.getsize(f"{path}/state.pt")
+        fresh = build_trainer(torch.float32, seed=1, device=dev)
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(f"{tmp}/probe", fresh)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        saved, got = trainer.state_dict(), fresh.state_dict()
+        diff = [k for k, v in saved["model"].items()
+                if not torch.equal(v, got["model"][k])]
+        diff += [f"moment {i}" for i, (a, b) in enumerate(zip(
+            saved["optimizer"]["mu"] + saved["optimizer"]["nu"],
+            got["optimizer"]["mu"] + got["optimizer"]["nu"]))
+            if not torch.equal(a, b)]
+        if (diff or saved["step"] != got["step"]
+                or saved["optimizer"]["count"] != got["optimizer"]["count"]):
+            raise AssertionError(f"checkpoint restore differs: {diff[:8]}, "
+                                 f"step {got['step']} / {saved['step']}")
+        log(f"self-train checkpoint: {nbytes_ckpt} bytes ({len(diff)} "
+            f"differing tensors of {len(saved['model'])} + "
+            f"{2 * len(saved['optimizer']['mu'])} moments after a restore "
+            f"into a fresh trainer: bitwise EQUAL, step {got['step']}); "
+            f"save {save_ms:.1f} ms, restore {restore_ms:.1f} ms")
+        del fresh, saved, got, trainer, exp
+        torch.cuda.empty_cache()
+
+        # the export: scripts/mask3d_DINO_CSC_self_train.sh's test run
+        cfg = get_parameters(SELF_TRAIN_EXPORT + data + [
+            f"general.save_dir={r1}"])
+        t0 = time.perf_counter()
+        exp = build_experiment(cfg)
+        res_x = exp.test(checkpoint=cfg.general.checkpoint,
+                         save_for_freemask=bool(cfg.general.save_for_freemask))
+        t_export = time.perf_counter() - t0
+        evalx = dict(exp.eval_stats)
+        if exp._eval_dev_cache or exp._eval_cache:
+            raise AssertionError("test() left eval batches cached")
+        files = sorted(glob.glob(f"{r1}/freemasks/*.npy"))
+        for name, n in points.items():
+            masks = np.load(f"{r1}/freemasks/{name}_masks.npy")
+            cloud = np.load(f"{r1}/freemasks/{name}_cloud.npy")
+            if masks.dtype != bool or masks.shape[0] != n or \
+                    cloud.shape != (n, 3):
+                raise AssertionError(f"export {name}: masks {masks.dtype} "
+                                     f"{masks.shape}, cloud {cloud.shape}, "
+                                     f"{n} points")
+        n_bytes = sum(os.path.getsize(f) for f in files)
+        log(f"self-train export: {len(files)} files, {n_bytes} bytes, "
+            f"{t_export:.1f}s (build, restore, evaluation: "
+            f"{_eval_split(evalx)})")
+        del exp
+        torch.cuda.empty_cache()
+
+        # round 2: the next round's overrides from its best checkpoint
+        cfg = get_parameters(SELF_TRAIN_ROUND + data + [
+            f"general.save_dir={tmp}/round2", "trainer.max_epochs=1",
+            "optimizer=adamw_lower",
+            f"data.datasets.train_dataset.self_train_data_dir={r1}",
+            "data.datasets.train_dataset.load_self_train_data=true",
+            f"general.checkpoint={r1}/best"])
+        t0 = time.perf_counter()
+        exp = build_experiment(cfg)
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trainer = exp.fit(seed=int(cfg.general.seed),
+                          resume=bool(cfg.general.resume),
+                          checkpoint=cfg.general.checkpoint)
+        t_fit = time.perf_counter() - t0
+        n_steps += trainer.step
+        ds = exp.train_dataset
+        found = sorted(ds.merge_found)
+        _self_train_report("round 2", exp, t_build, t_fit)
+        log(f"self-train round 2 merge: exports found for {len(found)} of "
+            f"{len(points)} train scenes, {ds.merged_instances} instances "
+            "merged (at random weights the count means nothing)")
+        if len(found) != len(points):
+            raise AssertionError(f"merge found {found}, expected "
+                                 f"{sorted(points)}")
+        res2 = exp.last_results
+        n_evals = 3 * len(points)
+        del trainer, exp
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    log(f"self-train path: {n_steps} train steps, {n_evals} evaluated "
+        f"scenes, launches {launches}")
+    for k in PER_TRAIN_STEP:
+        want = n_steps * PER_TRAIN_STEP[k] + n_evals * PER_FORWARD[k]
+        if launches[k] != want:
+            raise AssertionError(f"self-train {k}: {launches[k]} launches, "
+                                 f"expected {n_steps} x {PER_TRAIN_STEP[k]}"
+                                 f" + {n_evals} x {PER_FORWARD[k]}")
+    for what, res in (("round 1", res1), ("export", res_x),
+                      ("round 2", res2)):
+        aps = [res["all_ap"], res["all_ap_50%"], res["all_ap_25%"]]
+        if not all(np.isfinite(aps)):
+            raise AssertionError(f"self-train {what}: AP not finite {aps}")
+        log(f"self-train {what} AP / AP50 / AP25: {aps[0]:.4f} / "
+            f"{aps[1]:.4f} / {aps[2]:.4f} (finite; at random weights their "
+            "values mean nothing)")
+    steps = fit1["step_ms"]
+    scenes_s = TRAIN_BATCH * len(steps) / sum(fit1["epoch_s"])
+    log(f"self-train round 1 through fit: steps {[round(x, 1) for x in steps]}"
+        f" ms, prefetch wait {[round(x, 1) for x in fit1['wait_ms']]} ms per "
+        f"step, epochs {[round(x, 2) for x in fit1['epoch_s']]} s = "
+        f"{scenes_s:.2f} scenes/s through fit (Trainer.train_step alone, "
+        f"f32, phase_train_f32: {1e3 * TRAIN_BATCH / f32_step_ms:.2f} "
+        f"scenes/s); eval {eval1['seconds'] / eval1['scenes']:.3f} s per "
+        f"scene; on {card}")
+    log(f"phase self_train: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def _self_train_report(what, exp, t_build, t_fit):
+    st, ev = exp.fit_stats, exp.eval_stats
+    log(f"self-train {what}: build_experiment {t_build:.1f}s, fit "
+        f"{t_fit:.1f}s ({len(st['step_ms'])} steps of batch "
+        f"{exp.batch_size}: step ms {[round(x, 1) for x in st['step_ms']]}, "
+        f"prefetch wait ms {[round(x, 1) for x in st['wait_ms']]}, epoch s "
+        f"{[round(x, 2) for x in st['epoch_s']]}, checkpoint s "
+        f"{[round(x, 2) for x in st['checkpoint_s']]}); validation "
+        + _eval_split(ev))
+
+
+def _eval_split(ev):
+    return (f"{ev['scenes']} scenes in {ev['seconds']:.2f}s = "
+            f"{ev['seconds'] / ev['scenes']:.3f} s per scene (host clock, "
+            f"main thread: prefetch wait {ev['prefetch_wait_s']:.2f}s, "
+            f"forward + pack + copy {ev['forward_and_pack_s']:.2f}s, wait "
+            f"for the last tails {ev['tails_wait_s']:.2f}s, AP and box AP "
+            f"{ev['ap_s']:.2f}s; the tails on 2 threads: post "
+            f"{ev['tail_post_s']:.2f}s, boxes {ev['tail_boxes_s']:.2f}s, "
+            f"exports {ev['tail_exports_s']:.2f}s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1920,13 +2164,15 @@ def main() -> int:
     phase_train_profile(trainer, tbatch, gen)
     del trainer
     torch.cuda.empty_cache()
-    launches["train_f32"] = phase_train_f32(dev, tbatch)
+    launches["train_f32"], f32_step_ms = phase_train_f32(dev, tbatch)
     del tbatch
     torch.cuda.empty_cache()
     launches["train_csr"] = phase_train_csr(dev, tbatch_csr.to(dev))
     del tbatch_csr
     torch.cuda.empty_cache()
     phase_train_parity(dev)
+    torch.cuda.empty_cache()
+    launches["self_train"] = phase_self_train(dev, card, f32_step_ms)
 
     main_case = {"conv3_fwd": (0, 128, 96, torch.bfloat16),
                  "k_apply_gemm": ("up", torch.bfloat16),

@@ -2,7 +2,8 @@
 table is bitwise equal, the instance targets included. Also: the port,
 its train step included, imports neither jax nor flax nor any module of the
 JAX package (checked in a subprocess, since this process imported jax
-through conftest). With `csr_levels` set every table but the pair tables is
+through conftest), the self-training entry point and an Experiment built
+from the repository's conf/ and evaluating on the CPU included. With `csr_levels` set every table but the pair tables is
 still bitwise equal; tests/test_torch_csr.py holds the pair tables."""
 
 import os
@@ -239,6 +240,19 @@ def test_port_imports_no_jax():
         " method=method, ncut_cfg=cfg)\n"
         "    out = pipe.process_scenes([pseudo])\n"
         "    assert out['s'][1].shape[0] == len(scene['xyz'])\n"
+        "import tempfile\n"
+        "from unscene3d_torch.main_instance_segmentation import ("
+        "build_experiment, get_parameters)\n"
+        "cfg = get_parameters(['data/datasets=synthetic',"
+        " 'data.batch_size=2', 'data.voxel_size=0.15',"
+        " 'model.hidden_dim=16', 'model.num_queries=4', 'model.num_heads=2',"
+        " 'model.dim_feedforward=32', 'model.num_decoders=1',"
+        " 'model.backbone._target_=unscene3d_tpu.models.backbone."
+        "Res16UNet14A', 'data.datasets.validation_dataset.num_points=1500',"
+        " 'general.device=cpu', 'general.save_dir=' + tempfile.mkdtemp()])\n"
+        "exp = build_experiment(cfg)\n"
+        "res = exp.evaluate(exp.validation_dataset, max_scenes=1)\n"
+        "assert {'all_ap', 'all_ap_50%', 'all_ap_25%'} <= set(res)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax',"
         " 'jaxlib', 'unscene3d_tpu', 'benchmarks')]\n"
         "assert not bad, bad\n"

@@ -1,6 +1,6 @@
 """Host-side voxelization + collation (counterpart of
-unscene3d_tpu/data/collate.py:FreeMaskCollator, without crops, triplane maps
-or TPU tables).
+unscene3d_tpu/data/collate.py:FreeMaskCollator and its `make_crops`, without
+triplane maps or TPU tables).
 
 numpy, and the port's native library (`unscene3d_torch/native`, C++) for
 the k3 maps and the FPS seeds, as the JAX collator calls its own;
@@ -43,6 +43,7 @@ class CollateMeta:
 
     scene_names: list
     inverse_maps: list            # (P_b,) voxel index per original point
+    full_res_coords: list         # (P_b, 3) f32 raw xyz
     num_voxels: list
     segment_connectivity: list
     original_segments: list       # (P_b,) consecutive full-res segment ids
@@ -129,6 +130,49 @@ def _targets(per_scene: list[dict], scene_rows: list[tuple[int, int]],
                    seg_masks=t(seg_masks), vox_masks=t(vox_masks))
 
 
+def make_crops(scenes: list[dict]) -> list[dict]:
+    """Quadrant-split every scene into four XY crops (the JAX collator's
+    `make_crops`, reference datasets/utils.py:616-668): recentre, append
+    four anchor points that put a point in every quadrant (zero features,
+    segment 0, ignore label 255, in no mask), keep each quadrant with more
+    than one point, recentre it and name it `<name>_crop<sx><sy>`."""
+    out = []
+    for s in scenes:
+        xyz = np.asarray(s["xyz"], np.float32).copy()
+        xyz[:, :3] -= xyz[:, :3].mean(0)
+        anchors = np.asarray([[0.1, 0.1, 0.1], [0.1, -0.1, 0.1],
+                              [-0.1, 0.1, 0.1], [-0.1, -0.1, 0.1]], np.float32)
+        xyz = np.vstack([xyz, anchors])
+
+        def pad_rows(key, fill):
+            v = s.get(key)
+            if v is None:
+                return None
+            v = np.asarray(v)
+            extra_shape = (4,) + v.shape[1:]
+            return np.concatenate([v, np.full(extra_shape, fill, v.dtype)], 0)
+
+        padded = {"features": pad_rows("features", 0),
+                  "segments": pad_rows("segments", 0),
+                  "masks": pad_rows("masks", False),
+                  "labels": pad_rows("labels", 255),
+                  "colors": pad_rows("colors", 0)}
+        for sx, sy in ((1, 1), (1, -1), (-1, 1), (-1, -1)):
+            crop = (sx * xyz[:, 0] > 0) & (sy * xyz[:, 1] > 0)
+            if crop.sum() <= 1:
+                continue
+            c_xyz = xyz[crop].copy()
+            c_xyz[:, :3] -= c_xyz[:, :3].mean(0)
+            cs = dict(s)
+            cs["xyz"] = c_xyz
+            for key, v in padded.items():
+                if v is not None:
+                    cs[key] = v[crop]
+            cs["name"] = f"{s.get('name', 'scene')}_crop{sx}{sy}"
+            out.append(cs)
+    return out
+
+
 class FreeMaskCollator:
     """Collate a list of scene dicts (xyz (P,3), features (P,C), segments
     (P,), optional masks (P,K) bool with optional mask_labels (K,),
@@ -136,12 +180,24 @@ class FreeMaskCollator:
     CollateMeta). Instances that voxelization empties are dropped. `native`
     (default) builds the k3 maps and the FPS seeds in the C++ library;
     False runs their numpy twins. `timings` holds the last call's seconds:
-    `voxelize` (quantize, dedup, relabel per scene) and `total`."""
+    `voxelize` (quantize, dedup, relabel per scene) and `total`.
+
+    `small_crops` / `very_small_crops` split every scene into its four XY
+    quadrants once / twice before voxelizing (`make_crops`).
+    `win_levels` (conf/data/collation_functions/*.yaml) is accepted and
+    has no effect: the window engine is how the TPU computed the k3 conv,
+    and the port's kernel 1 reads the level's (27, N) map at every level.
+    `build_triplane=True` raises until the tri-plane loss is ported."""
 
     def __init__(self, voxel_size: float = 0.02, num_levels: int = 5,
                  seg_align: int = 64,
                  fine_buckets: bool = False, fps_queries: int = 100,
-                 csr_levels: tuple = (), native: bool = True):
+                 csr_levels: tuple = (), native: bool = True,
+                 win_levels: tuple = (), build_triplane: bool = False,
+                 small_crops: bool = False, very_small_crops: bool = False):
+        if build_triplane:
+            raise NotImplementedError("the tri-plane maps of the "
+                                      "noise-robust loss are not ported")
         self.voxel_size = voxel_size
         self.num_levels = num_levels
         self.seg_align = seg_align
@@ -150,13 +206,19 @@ class FreeMaskCollator:
         # levels whose k3 convs run over compacted valid pairs (kernel 6)
         self.csr_levels = tuple(csr_levels)
         self.native = bool(native)
+        self.small_crops = bool(small_crops)
+        self.very_small_crops = bool(very_small_crops)
         self.timings = {}
 
     def __call__(self, scenes: list[dict]) -> tuple[SceneBatch, CollateMeta]:
         t0 = time.perf_counter()
+        if self.small_crops or self.very_small_crops:
+            scenes = make_crops(scenes)
+        if self.very_small_crops:
+            scenes = make_crops(scenes)
         B = len(scenes)
         per_scene = []
-        meta = CollateMeta([], [], [], [], [])
+        meta = CollateMeta([], [], [], [], [], [])
         for b, s in enumerate(scenes):
             xyz = np.asarray(s["xyz"], np.float32)
             vox, unique_map, inverse_map = sparse_quantize(xyz, self.voxel_size)
@@ -175,6 +237,7 @@ class FreeMaskCollator:
                 masks=masks, mask_labels=mask_labels))
             meta.scene_names.append(s.get("name", f"scene{b:04d}"))
             meta.inverse_maps.append(inverse_map)
+            meta.full_res_coords.append(xyz)
             meta.num_voxels.append(len(vox))
             meta.segment_connectivity.append(s.get("segment_connectivity"))
             meta.original_segments.append(_relabel(np.asarray(s["segments"])))

@@ -1,0 +1,255 @@
+"""FreeMask (pseudo-mask) dataset readers (the port's own copy of
+unscene3d_tpu/data/freemask_dataset.py).
+
+Byte-compatible with the reference's on-disk formats
+(datasets/freemask_semseg.py:267-434):
+  * `{mode}_database.yaml`: list of dicts with 'filepath' per scene
+  * scene `.npy`: columns [xyz(3), rgb(3) 0-255, normal(3), segment(1),
+    label(1), instance(1)]
+  * `{scene}_freemasks.npy`: (P, K) pseudo-mask matrix
+  * self-train round outputs: `{dir}/freemasks/scene{id}_cloud.npy` +
+    `_masks.npy`, merged by the novel-area rule (:224-265).
+
+Returns plain scene dicts for FreeMaskCollator. One `RandomState` (from
+`seed`) serves the augmentations and the re-draw of a scene left with no
+mask, in the JAX package's order, so both packages give the same scene for
+the same index and state. `merge_found` holds the scene ids whose
+self-train export the merge found. A synthetic oracle variant generates
+GT-derived scenes on the fly (the role of scannet_freemask_oracle).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from pathlib import Path
+
+import numpy as np
+import yaml
+
+from unscene3d_torch.data.augmentations import (
+    TrainAugmentation,
+    append_unlabeled_scene,
+    normalize_color,
+    oversample_instances,
+)
+from unscene3d_torch.data.synthetic import make_scene
+
+COLOR_MEAN = (0.47793125906962, 0.4303257521323044, 0.3749598901421883)
+COLOR_STD = (0.2834475483823543, 0.27566157565723015, 0.27018971370874995)
+
+
+class FreeMaskDataset:
+    def __init__(
+        self,
+        data_dir: str,
+        mode: str = "train",
+        add_colors: bool = True,
+        add_normals: bool = False,
+        add_raw_coordinates: bool = True,
+        num_labels: int = 2,
+        ignore_label: int = 255,
+        max_extent_ratio: float = 0.8,
+        freemask_hard_threshold: float = 0.5,
+        load_self_train_data: bool = False,
+        self_train_data_dir: str | None = None,
+        num_self_train_data: int = 20,
+        max_num_gt_instances: int = -1,
+        augment: bool | None = None,
+        seed: int = 0,
+        flip_in_center: bool = False,
+        point_per_cut: int = 0,
+        max_cut_region: float = 0.0,
+        resample_points: float = 0.0,
+        noise_rate: float = 0.0,
+        instance_oversampling: float = 0.0,
+        place_around_existing: bool = False,
+        add_unlabeled_pc: bool = False,
+        volume_augmentations_path: str | None = None,
+        image_augmentations_path: str | None = None,
+    ):
+        self.data_dir = data_dir
+        self.mode = mode
+        self.add_colors = add_colors
+        self.add_normals = add_normals
+        self.add_raw_coordinates = add_raw_coordinates
+        self.ignore_label = ignore_label
+        self.max_extent_ratio = max_extent_ratio
+        self.freemask_hard_threshold = freemask_hard_threshold
+        self.load_self_train_data = load_self_train_data
+        self.self_train_data_dir = self_train_data_dir
+        self.num_self_train_data = num_self_train_data
+        self.max_num_gt_instances = max_num_gt_instances
+        self.augment = ("train" in mode) if augment is None else augment
+        self.rng = np.random.RandomState(seed)
+        # self-train merge: the scene ids whose export was found, and the
+        # instances it added over all loads
+        self.merge_found: set = set()
+        self.merged_instances = 0
+        self._merge_lock = threading.Lock()
+        self.instance_oversampling = float(instance_oversampling)
+        self.place_around_existing = bool(place_around_existing)
+        self.add_unlabeled_pc = bool(add_unlabeled_pc)
+        self.augmentation = TrainAugmentation(
+            flip_in_center=bool(flip_in_center),
+            point_per_cut=int(point_per_cut),
+            max_cut_region=float(max_cut_region),
+            resample_points=float(resample_points),
+            noise_rate=float(noise_rate),
+            ignore_label=int(ignore_label),
+            volume_augmentations_path=volume_augmentations_path,
+            image_augmentations_path=image_augmentations_path,
+        )
+
+        db_path = os.path.join(data_dir, f"{self._db_mode()}_database.yaml")
+        with open(db_path) as f:
+            self.data = yaml.safe_load(f)
+
+    def _db_mode(self):
+        return {"train": "train", "validation": "validation", "test": "validation"}.get(
+            self.mode, self.mode
+        )
+
+    def __len__(self):
+        return len(self.data)
+
+    def scene_sizes(self) -> list[int]:
+        """Per-scene point counts from the database yaml (file_len written by
+        the preprocessors) -- lets the trainer derive its master pad plan
+        from the LARGEST scenes up front instead of probing the first few
+        (a pad-plan rebuild costs a full recompile, VERDICT r3 next#7).
+        -1 where the database has no size hint."""
+        return [int(e.get("file_len", -1) or -1) for e in self.data]
+
+    def __getitem__(self, idx: int) -> dict:
+        entry = self.data[idx % len(self.data)]
+        point_path = entry["filepath"].replace("../../", "")
+        if not os.path.isabs(point_path):
+            point_path = os.path.join(self.data_dir, point_path) \
+                if not os.path.exists(point_path) else point_path
+        points = np.load(point_path)
+        masks = np.load(point_path.replace(".npy", "_freemasks.npy"))
+
+        if self.load_self_train_data:
+            masks = self._merge_self_train(entry, points, masks)
+        if self.max_num_gt_instances > 0:
+            masks = masks[:, : self.max_num_gt_instances]
+
+        coords = points[:, :3].astype(np.float32)
+        colors01 = points[:, 3:6].astype(np.float32) / 255.0
+        normals = points[:, 6:9].astype(np.float32)
+        segments = points[:, 9].astype(np.int64)
+
+        # XY-extent filter (reference :305-315)
+        scene_extent = (coords.max(0) - coords.min(0))[:2] * self.max_extent_ratio
+        keep = []
+        for k in range(masks.shape[1]):
+            m = masks[:, k] > self.freemask_hard_threshold
+            if m.sum() == 0:
+                continue
+            ext = (coords[m].max(0) - coords[m].min(0))[:2]
+            if not np.any(ext > scene_extent):
+                keep.append(k)
+        masks = masks[:, keep] > self.freemask_hard_threshold
+        if masks.shape[1] == 0:
+            return self[self.rng.randint(len(self.data))]
+
+        scene = dict(
+            xyz=coords,
+            colors=colors01,
+            normals=normals,
+            segments=segments,
+            masks=masks,
+            labels=np.any(masks, axis=1).astype(np.int32),
+            name=Path(entry.get("raw_filepath", point_path)).parent.name
+            if entry.get("raw_filepath") else Path(point_path).stem,
+        )
+        if self.augment:
+            if self.instance_oversampling > 0:
+                scene = oversample_instances(
+                    scene, self.data, self._load_points,
+                    self.instance_oversampling, self.place_around_existing,
+                    self.rng)
+            scene = self.augmentation(scene, self.rng)
+            if self.add_unlabeled_pc and self.rng.rand() < 0.8:
+                scene = append_unlabeled_scene(
+                    scene, self.data, self._load_points, self.rng,
+                    self.ignore_label)
+        else:
+            scene["features"] = normalize_color(colors01, COLOR_MEAN, COLOR_STD)
+        if self.add_normals:
+            scene["features"] = np.hstack(
+                [scene["features"], np.asarray(scene["normals"])])
+        if not self.add_colors:
+            scene["features"] = np.ones_like(scene["features"])
+        return scene
+
+    def _load_points(self, entry) -> np.ndarray:
+        point_path = entry["filepath"].replace("../../", "")
+        if not os.path.isabs(point_path):
+            point_path = os.path.join(self.data_dir, point_path) \
+                if not os.path.exists(point_path) else point_path
+        return np.load(point_path)
+
+    def _merge_self_train(self, entry, points, masks):
+        """Self-train mask merge (reference :224-265): add up to
+        num_self_train_data predicted instances whose novel-area ratio > 0.5,
+        clipped to the uncovered region."""
+        scene_id = Path(entry["filepath"]).stem
+        base = os.path.join(self.self_train_data_dir, "freemasks")
+        try:
+            cloud = np.load(os.path.join(base, f"scene{scene_id}_cloud.npy"))
+            new_masks = np.load(os.path.join(base, f"scene{scene_id}_masks.npy"))
+        except FileNotFoundError:
+            return masks
+        if len(points) != len(cloud) or not np.allclose(points[:, :3], cloud[:, :3]):
+            from scipy.spatial import KDTree
+
+            _, ind = KDTree(cloud[:, :3]).query(points[:, :3], k=1)
+            new_masks = new_masks[ind]
+        covered = np.any(masks > self.freemask_hard_threshold, axis=1)
+        added, k = 0, 0
+        masks = masks.copy()
+        while added < self.num_self_train_data and k < new_masks.shape[1]:
+            inst = new_masks[:, k].astype(bool)
+            if inst.sum() > 0 and (np.logical_and(~covered, inst).sum() / inst.sum()) > 0.5:
+                novel = np.logical_and(~covered, inst)
+                masks = np.concatenate([masks, novel[:, None].astype(masks.dtype)], axis=1)
+                covered |= novel
+                added += 1
+            k += 1
+        with self._merge_lock:
+            self.merge_found.add(scene_id)
+            self.merged_instances += added
+        return masks
+
+
+class SyntheticFreeMaskDataset:
+    """On-the-fly oracle dataset (GT masks) for smoke tests and benches."""
+
+    def __init__(self, mode: str = "train", num_scenes: int = 8,
+                 num_points: int = 8000, num_objects: int = 8, seed: int = 0,
+                 extent: float = 3.0, augment: bool | None = None, **_):
+        self.mode = mode
+        self.num_scenes = num_scenes
+        self.num_points = num_points
+        self.num_objects = num_objects
+        self.extent = float(extent)
+        self.base_seed = seed + {"train": 0, "validation": 10_000, "test": 20_000}.get(mode, 0)
+        self.augment = ("train" in mode) if augment is None else augment
+        self.rng = np.random.RandomState(self.base_seed)
+        self.augmentation = TrainAugmentation()
+
+    def __len__(self):
+        return self.num_scenes
+
+    def scene_sizes(self) -> list[int]:
+        return [self.num_points] * self.num_scenes
+
+    def __getitem__(self, idx: int) -> dict:
+        scene = make_scene(num_points=self.num_points, num_objects=self.num_objects,
+                           extent=self.extent, seed=self.base_seed + int(idx))
+        scene["features"] = normalize_color(scene["colors"], COLOR_MEAN, COLOR_STD)
+        if self.augment:
+            scene = self.augmentation(scene, self.rng)
+        return scene

@@ -59,10 +59,11 @@ def build_mask3d(dtype=torch.float32, backbone: str = "Res16UNet34C",
 
 
 def postprocess(out: dict, meta, vox_coords=None, dbscan_eps: float = 0.95,
-                dbscan_min_points: int = 1) -> dict:
+                dbscan_min_points: int = 1, **options) -> dict:
     """Host post-processing of one single-scene forward over its (N, Q)
     voxel logits, at full resolution; with `vox_coords` (the scene's
-    (n_vox, 3) raw coords) each query is split into DBSCAN clusters first."""
+    (n_vox, 3) raw coords) each query is split into DBSCAN clusters first.
+    `options` override EVAL_DEFAULTS."""
     n_vox = meta.num_voxels[0]
     logits = out["pred_logits"][-1][0].float().cpu().numpy()
     vox = out["pred_masks_vox"][-1][:n_vox].float().cpu().numpy()
@@ -72,19 +73,26 @@ def postprocess(out: dict, meta, vox_coords=None, dbscan_eps: float = 0.95,
         segment_connectivity=meta.segment_connectivity[0],
         use_dbscan=vox_coords is not None, vox_coords=vox_coords,
         dbscan_eps=dbscan_eps, dbscan_min_points=dbscan_min_points,
-        **EVAL_DEFAULTS)
+        **dict(EVAL_DEFAULTS, **options))
 
 
 class Predictor:
     """Answers one scene per call on `device` ('cuda' needs a GPU and
     raises without one; 'cpu' runs the kernels' plain twins). `use_dbscan`
     takes the host route with the DBSCAN query split (general.use_dbscan,
-    dbscan_eps, dbscan_min_points of the reference's config)."""
+    dbscan_eps, dbscan_min_points of the reference's config); `post_options`
+    override EVAL_DEFAULTS (the config's eval_on_segments, topk_per_image,
+    filter_instances, iou_threshold, scores_threshold,
+    separate_instances)."""
 
     def __init__(self, model: Mask3D, device="cuda", voxel_size: float = 0.02,
                  fine_buckets: bool = True, csr_levels: tuple = (),
                  use_dbscan: bool = False, dbscan_eps: float = 0.95,
-                 dbscan_min_points: int = 1):
+                 dbscan_min_points: int = 1, **post_options):
+        unknown = set(post_options) - set(EVAL_DEFAULTS)
+        if unknown:
+            raise TypeError(f"unknown post-processing options {unknown}")
+        self.post_options = dict(EVAL_DEFAULTS, **post_options)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.collator = FreeMaskCollator(voxel_size=voxel_size,
@@ -106,15 +114,16 @@ class Predictor:
         copies back, still on the device."""
         return pack_eval_outputs(out, batch.graph.levels[0].valid)
 
-    def tail(self, host: dict, meta) -> dict:
+    def tail(self, host: dict, meta, seg_vote=None) -> dict:
         """The device-post route's host tail over `to_host(self.pack(...))`,
-        in segment space (one `SegmentVote` per request)."""
+        in segment space: over `seg_vote` (the scene's `SegmentVote`) when
+        given, else over one built for this request."""
         return eval_scene_predictions_packed(
             host["probs"], host["mask_scores"], host["packed"],
             meta.num_voxels[0], inverse_map=meta.inverse_maps[0],
             point2segment_full=meta.original_segments[0],
             segment_connectivity=meta.segment_connectivity[0],
-            **EVAL_DEFAULTS)
+            seg_vote=seg_vote, **self.post_options)
 
     def post(self, out: dict, batch, meta) -> dict:
         """The instances of one forward, by this predictor's route."""
@@ -123,7 +132,7 @@ class Predictor:
             return postprocess(
                 out, meta, vox_coords=batch.raw_coords[:n_vox].cpu().numpy(),
                 dbscan_eps=self.dbscan_eps,
-                dbscan_min_points=self.dbscan_min_points)
+                dbscan_min_points=self.dbscan_min_points, **self.post_options)
         return self.tail(to_host(self.pack(out, batch)), meta)
 
     def __call__(self, scene: dict) -> dict:

@@ -34,8 +34,15 @@ class HungarianMatcher:
     cost_class: float = 2.0
     cost_mask: float = 5.0
     cost_dice: float = 2.0
+    num_points: int = -1     # every mask column, the reference's default
     ignore_label: int = 253
     solver: str = "auction"
+
+    def __post_init__(self):
+        if self.num_points != -1:
+            raise NotImplementedError(
+                "point subsampling in the matcher is not ported "
+                "(conf/matcher/hungarian_matcher.yaml sets num_points: -1)")
 
     def cost_matrix(self, pred_logits, pred_masks, tgt_labels, tgt_masks,
                     tgt_valid, col_valid):

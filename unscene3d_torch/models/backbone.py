@@ -8,9 +8,11 @@ call mode the final projection and the feature maps by stride. Submodule names e
 the JAX package's, so the weight bridge maps names one to one.
 
 Eval folds each BatchNorm into its conv's epilogue. Training runs conv ->
-BN -> ReLU unfolded and recomputes each residual block in the backward
-(torch.utils.checkpoint, as the JAX model's nn.remat under the backbone
-conf's default `remat: true`).
+BN -> ReLU unfolded and, with `remat` (the default here and
+conf/model/mask3d.yaml's value), recomputes each residual block in the
+backward (torch.utils.checkpoint, as the JAX model's nn.remat); `remat=False`
+keeps the blocks' activations instead. `bn_momentum` is every BatchNorm's
+running-statistics momentum.
 """
 
 from __future__ import annotations
@@ -30,9 +32,12 @@ class Res16UNetBase(nn.Module):
     layers: tuple = (2, 2, 2, 2, 2, 2, 2, 2)
 
     def __init__(self, out_channels: int, in_channels: int = 3,
-                 init_dim: int = 32, dtype=torch.float32):
+                 init_dim: int = 32, dtype=torch.float32,
+                 bn_momentum: float = 0.02, remat: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.bn_momentum = float(bn_momentum)
+        self.remat = bool(remat)
         p, L = self.planes, self.layers
         # stem, then each strided conv keeps its input width
         self._conv_bn("conv0p1s1", in_channels, init_dim, "k3")
@@ -52,12 +57,14 @@ class Res16UNetBase(nn.Module):
     def _conv_bn(self, name, cin, cout, kind):
         self.add_module(f"{name}_conv",
                         SparseConv(cin, cout, kind, dtype=self.dtype))
-        self.add_module(f"{name}_bn", SparseBatchNorm(cout, dtype=self.dtype))
+        self.add_module(f"{name}_bn", SparseBatchNorm(
+            cout, dtype=self.dtype, momentum=self.bn_momentum))
 
     def _blocks(self, name, cin, planes, n):
         for bi in range(n):
             self.add_module(f"{name}_{bi}",
-                            BasicBlock(cin, planes, dtype=self.dtype))
+                            BasicBlock(cin, planes, dtype=self.dtype,
+                                       bn_momentum=self.bn_momentum))
             cin = planes
         return planes
 
@@ -71,7 +78,7 @@ class Res16UNetBase(nn.Module):
     def _run_blocks(self, name, x, level, n):
         for bi in range(n):
             block = getattr(self, f"{name}_{bi}")
-            if self.training:
+            if self.training and self.remat:
                 x = checkpoint(block, x, level, use_reentrant=False)
             else:
                 x = block(x, level)

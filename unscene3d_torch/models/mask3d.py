@@ -86,8 +86,30 @@ class Mask3D(nn.Module):
                  positional_encoding_type: str = "fourier",
                  gauss_scale: float = 1.0, scatter_type: str = "mean",
                  use_level_embed: bool = False, use_np_features: bool = False,
-                 dropout: float = 0.0, dtype=torch.float32):
+                 dropout: float = 0.0, pre_norm: bool = False,
+                 random_queries: bool = False,
+                 random_query_both: bool = False,
+                 random_normal: bool = False, max_sample_size: bool = False,
+                 train_on_segments: bool = True, voxel_size: float = 0.02,
+                 dtype=torch.float32):
         super().__init__()
+        # conf/model/mask3d.yaml's keys: each value the port does not
+        # implement raises here, at construction
+        if pre_norm:
+            raise NotImplementedError("pre-norm decoder layers are not ported"
+                                      " (conf/model/mask3d.yaml sets false)")
+        if random_queries or random_query_both or random_normal:
+            raise NotImplementedError(
+                "random query modes are not ported (conf/model/mask3d.yaml "
+                "sets random_queries, random_query_both, random_normal "
+                "false)")
+        if max_sample_size:
+            raise NotImplementedError("max_sample_size is not ported "
+                                      "(conf/model/mask3d.yaml sets false)")
+        if not train_on_segments:
+            raise NotImplementedError(
+                "only segment-space masks are ported (train_on_segments: "
+                "true, as every script of the self-training round sets)")
         if not non_parametric_queries:
             raise NotImplementedError(
                 "only non-parametric (FPS) queries are ported")
@@ -106,6 +128,7 @@ class Mask3D(nn.Module):
         self.shared_decoder = shared_decoder
         self.hlevels = tuple(hlevels)
         self.sample_sizes = tuple(sample_sizes)
+        self.voxel_size = float(voxel_size)
         self.dtype = dtype
         self.pos_enc = PositionEmbeddingCoordsSine(
             d_pos=D, gauss_scale=gauss_scale, normalize=normalize_pos_enc,

@@ -18,8 +18,9 @@ from unscene3d_torch.ops.conv3 import epilogue
 from unscene3d_torch.ops.sparse_graph import LevelGraph
 
 _KERNEL_OFFSETS = {"k3": 27, "down2": 8, "up2": 8}
-# torch-style momentum of the running BatchNorm statistics, the
-# reference's bn_momentum (unscene3d_tpu/models/sparse_modules.py:116)
+# default torch-style momentum of the running BatchNorm statistics, the
+# reference's bn_momentum (unscene3d_tpu/models/sparse_modules.py:116); the
+# backbone passes its own `bn_momentum` to every SparseBatchNorm
 _BN_MOMENTUM = 0.02
 
 
@@ -83,14 +84,15 @@ class SparseBatchNorm(nn.Module):
     `forward` normalises with the batch statistics of the valid rows in f32
     (biased variance) and keeps (mean, unbiased variance) in `batch_stats`;
     `update_running_stats()` then moves the running estimates by the
-    torch-style momentum m = `_BN_MOMENTUM`: running = (1 - m) * running +
+    torch-style momentum m = `momentum`: running = (1 - m) * running +
     m * batch. The update is a separate call, like flax's mutated `batch_stats`, so a
     rematerialised forward cannot apply it twice."""
 
     def __init__(self, features: int, epsilon: float = 1e-5,
-                 dtype=torch.float32):
+                 dtype=torch.float32, momentum: float = _BN_MOMENTUM):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = float(momentum)
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -122,7 +124,7 @@ class SparseBatchNorm(nn.Module):
         if self.batch_stats is None:
             return
         mean, unbiased = self.batch_stats
-        m = _BN_MOMENTUM
+        m = self.momentum
         self.mean.copy_((1 - m) * self.mean + m * mean)
         self.var.copy_((1 - m) * self.var + m * unbiased)
         self.batch_stats = None
@@ -135,16 +137,18 @@ class BasicBlock(nn.Module):
     Training (:204-223): conv -> BN -> ReLU -> conv -> BN (+ k1/BN shortcut)
     -> ReLU(out + residual)."""
 
-    def __init__(self, inplanes: int, planes: int, dtype=torch.float32):
+    def __init__(self, inplanes: int, planes: int, dtype=torch.float32,
+                 bn_momentum: float = _BN_MOMENTUM):
         super().__init__()
         self.conv1 = SparseConv(inplanes, planes, "k3", dtype=dtype)
-        self.norm1 = SparseBatchNorm(planes, dtype=dtype)
+        self.norm1 = SparseBatchNorm(planes, dtype=dtype, momentum=bn_momentum)
         self.conv2 = SparseConv(planes, planes, "k3", dtype=dtype)
-        self.norm2 = SparseBatchNorm(planes, dtype=dtype)
+        self.norm2 = SparseBatchNorm(planes, dtype=dtype, momentum=bn_momentum)
         if inplanes != planes:
             self.downsample_conv = SparseConv(inplanes, planes, "k1",
                                               dtype=dtype)
-            self.downsample_norm = SparseBatchNorm(planes, dtype=dtype)
+            self.downsample_norm = SparseBatchNorm(planes, dtype=dtype,
+                                                   momentum=bn_momentum)
         else:
             self.downsample_conv = self.downsample_norm = None
 

@@ -9,8 +9,10 @@ BatchNorm running-statistics update.
 
 Parameters are f32 masters, cast to the compute dtype at each call (as
 flax casts them); losses, BatchNorm statistics and the optimizer state stay
-f32. Gradient accumulation, data parallelism, augmentations, prefetch and
-checkpoints are not ported yet.
+f32. `Trainer.accum_train_step` is the JAX package's
+`build_accum_train_step` (gradients averaged over micro-batches, then one
+AdamW step); `Trainer.state_dict` / `load_state_dict` are the train state
+that train/checkpoint.py saves. Data parallelism is not ported yet.
 """
 
 from __future__ import annotations
@@ -73,6 +75,16 @@ class AdamW:
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0
 
+    def state_dict(self) -> dict:
+        """The moments (in `params` order) and the step count."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+            dst.copy_(src)
+        self.count = int(state["count"])
+
     @torch.no_grad()
     def step(self, params, grads) -> None:
         b1, b2 = self.b1, self.b2
@@ -118,7 +130,8 @@ def make_optimizer(lr: float = 1e-4, total_steps: int = 10000,
 class Trainer:
     """Owns the model (f32 master params), the criterion and the optimizer
     state. The model, its batches and the generator of the point samples
-    live on one device."""
+    live on one device. `step` counts the optimizer steps taken (the JAX
+    TrainState's `step`)."""
 
     def __init__(self, model, criterion: SetCriterion, optimizer: AdamW):
         self.model = model.train()
@@ -127,6 +140,7 @@ class Trainer:
         self._bns = [m for m in model.modules()
                      if isinstance(m, SparseBatchNorm)]
         self.optimizer.init(self.params)
+        self.step = 0
 
     @property
     def params(self) -> list[torch.Tensor]:
@@ -152,7 +166,43 @@ class Trainer:
         self.optimizer.step(self.params, grads)
         for bn in self._bns:
             bn.update_running_stats()
+        self.step += 1
         return losses
+
+    def accum_train_step(self, batches, generator=None) -> dict:
+        """One optimizer step over micro-batches (the JAX package's
+        `build_accum_train_step`): forward, criterion and backward of each
+        micro-batch in turn, its BatchNorm running statistics updated
+        before the next one runs, the gradients summed and divided by the
+        count, then one AdamW step. Returns each float loss averaged over
+        the micro-batches."""
+        total, per_micro = None, []
+        for batch in batches:
+            losses, grads = self.loss_and_grads(batch, generator)
+            for bn in self._bns:
+                bn.update_running_stats()
+            total = grads if total is None else torch._foreach_add(total,
+                                                                   grads)
+            per_micro.append(losses)
+        torch._foreach_div_(total, len(per_micro))
+        self.optimizer.step(self.params, total)
+        self.step += 1
+        return {k: torch.stack([m[k] for m in per_micro]).mean(0)
+                for k, v in per_micro[0].items() if v.is_floating_point()}
+
+    def state_dict(self) -> dict:
+        """The train state of train/checkpoint.py: the step, the model's
+        state_dict (parameters, BatchNorm running statistics, buffers) and
+        AdamW's moments and count."""
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Exact restore of `state_dict()`'s layout, on the model's
+        device."""
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
 
 
 def build_trainer(dtype=torch.float32, seed: int | None = 0,
