@@ -22,6 +22,12 @@ self-training round through `unscene3d_torch.main_instance_segmentation`
 (round 1, the export, round 2 with the merge; f32, batch 8, on scenes of
 the train batch's size written in the reference's npy layout) and asserts
 a bitwise checkpoint restore, every export found and the kernels' launches.
+Then the pseudo masks as the paper makes them (`modality=both`): DINO
+ViT-S/8 and CSC features from seeded random checkpoints on 2 bench scenes
+with 75 frames each, timed by stage, and `python -m
+unscene3d_torch.pseudo_masks_main` on a ScanNet-layout directory written
+here (meshes, JPEG frames), asserting the segmentator's calls and the
+CSC forward's launches.
 
     python3 chip_smoke.py
 
@@ -149,6 +155,24 @@ SELF_TRAIN_EXPORT = [
     "general.save_for_freemask=true", "general.filter_out_instances=true",
     "general.eval_on_segments=true", "general.num_targets=3",
     "data/datasets=freemask"]
+# the pseudo masks as the paper makes them (phase_pseudo_both): DINO
+# ViT-S/8 at stride 4 on ScanNet's 480 x 640 frames x downsample_ratio 0.4
+# (conf/pseudo/default.yaml) and CSC res_2 features, 2 scenes of the bench
+# scene's size, 75 frames each (a ~1,500-frame scan at frame_skip 20), NCut
+# with conf/pseudo/default.yaml's freemask values
+PSEUDO_BOTH_SCENES = 2
+PSEUDO_FRAMES = 75
+FRAME = (192, 256)
+FREEMASK = dict(affinity_tau=0.6, max_number_of_instances=20,
+                similarity_metric="cos", max_extent_ratio=0.8,
+                min_segment_size=4, separation_mode="max")
+# one frame's DINO features, card vs CPU, relative to max|CPU|: 10 blocks of
+# f32 products summed in another order
+DINO_TOL = 1e-4
+# the ScanNet-layout run of the entry point (phase_pseudo_main): 2 meshes
+# of 300 x 300 vertices (8 m at 2.7 cm), 4 JPEG frames each
+MAIN_MESH = dict(grid=300, spacing=0.027, num_objects=12)
+MAIN_FRAMES = 4
 # the pseudo row of bench.py: scenes x segments x features
 PSEUDO_ROW = dict(batch_scenes=64, num_segments=400)
 EIGH_SCENES = 16         # scenes of the row timed with the exact solver
@@ -1640,6 +1664,287 @@ def phase_pseudo_row(dev):
         raise AssertionError("cholinv vs eigh planted-object recovery")
 
 
+def _pseudo_scene(seed):
+    """Bench scene `seed` as the pipeline takes it: 2 cm voxels, the
+    synthetic grid-cell segments with chain connectivity."""
+    from unscene3d_torch.data.synthetic import make_scene
+    from unscene3d_torch.ops.hashing import sparse_quantize
+
+    raw = make_scene(**BENCH_SCENE, seed=seed)
+    t0 = time.perf_counter()
+    vox, umap, _ = sparse_quantize(raw["xyz"], VOXEL)
+    seg = raw["segments"][umap]
+    uniq = np.unique(seg)
+    conn = np.column_stack([uniq[:-1], uniq[1:]])
+    log(f"pseudo scene {seed}: {len(raw['xyz'])} points, {len(vox)} voxels, "
+        f"{len(uniq)} segments (quantize {time.perf_counter() - t0:.2f}s)")
+    return dict(scene_name=f"bench{seed}", coords=vox,
+                feats=raw["features"][umap] - 0.5, segment_ids=[seg],
+                segment_connectivity=[np.vstack([conn, conn[:, ::-1]])],
+                full_coords=raw["xyz"])
+
+
+def _scannet_intrinsics(h, w):
+    """ScanNet's color intrinsics (1170.19 px focal length at 1296 wide)
+    for an (h, w) frame."""
+    K = np.eye(3)
+    K[0, 0] = K[1, 1] = 1170.187988 * w / 1296.0
+    K[0, 2], K[1, 2] = (w - 1) / 2.0, (h - 1) / 2.0
+    return K
+
+
+def _smoke_dir(name):
+    """A fresh directory under the checkout's build/ (gitignored)."""
+    import os
+    import shutil
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        name)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _write_checkpoints(root):
+    """Seeded random CSC (ME layout, in a `state_dict` wrapper under
+    `model.`) and DINO ViT-S/8 (the DINO repository's names under
+    `module.`) checkpoints, written with torch.save; their paths."""
+    import os
+
+    from unscene3d_torch.models.encoders_2d.dino import ViTExtractor
+    from unscene3d_torch.models.torch_convert import random_me_state_dict
+
+    csc = os.path.join(root, "CSC_train_Res16UNet34C_2cm.pth")
+    torch.save({"state_dict": {k: torch.from_numpy(np.asarray(v)) for k, v
+                               in random_me_state_dict(prefix="model.")
+                               .items()}}, csc)
+    dino = os.path.join(root, "dino_deitsmall8_pretrain.pth")
+    torch.save({f"module.{k}": v for k, v
+                in ViTExtractor().init_random_(1).state_dict().items()}, dino)
+    return csc, dino
+
+
+def dino_flops(h, w):
+    """Products of one key-facet ViT-S/8 forward at stride 4 on an (h, w)
+    frame (the port stops after block 10's qkv): the patch matmul, 9 whole
+    blocks (qkv, scores, weighted values, proj, the 4x MLP: 24 N D^2 +
+    4 N^2 D) and block 10's qkv (6 N D^2); N tokens with the class token."""
+    dim, blocks, patch, stride = 384, 9, 8, 4
+    n = ((h - patch) // stride + 1) * ((w - patch) // stride + 1)
+    tokens = n + 1
+    return (2 * n * 3 * patch * patch * dim
+            + blocks * (24 * tokens * dim ** 2 + 4 * tokens ** 2 * dim)
+            + 6 * tokens * dim ** 2)
+
+
+def phase_pseudo_both(dev, card):
+    """The pseudo masks as the paper makes them, at full width: 2 bench
+    scenes through PseudoMaskPipeline(modality="both") with 75 frames each
+    (192 x 256, seeded images, seeded cameras ringed round the scene and
+    facing its centre), DINO ViT-S/8 at stride 4 and Res16UNet34C res_2 from
+    seeded random checkpoints written in their own formats and read through
+    `dino_weights` / `csc_weights`, NCut with the config's values. Asserts
+    kernel 1 / 2 launches of 47 / 8 per scene, a share of voxels hit by a
+    frame above zero, one frame's DINO features on the card against the
+    CPU, (P, K) bool masks over each full cloud and two calls bitwise
+    equal; logs each stage's time."""
+    from unscene3d_torch import native
+    from unscene3d_torch.data.synthetic import ring_poses
+    from unscene3d_torch.models.encoders_2d.dino import (DinoNet,
+                                                         load_dino_weights)
+    from unscene3d_torch.pseudo.ncut import NCutConfig
+    from unscene3d_torch.pseudo.pipeline import PseudoMaskPipeline
+    from unscene3d_torch.pseudo.projection import project_2d_features
+
+    t_phase = time.perf_counter()
+    csc, dino = _write_checkpoints(_smoke_dir("pseudo_both"))
+    rng = np.random.RandomState(13)
+    scenes = []
+    for seed in range(PSEUDO_BOTH_SCENES):
+        s = _pseudo_scene(seed)
+        xyz = s["full_coords"]
+        centre = (xyz.min(0) + xyz.max(0)) / 2
+        s.update(images=rng.rand(PSEUDO_FRAMES, *FRAME, 3).astype(np.float32),
+                 poses=ring_poses(centre, 7.0, 2.5, PSEUDO_FRAMES),
+                 intrinsics=_scannet_intrinsics(*FRAME))
+        scenes.append(s)
+    pipe = PseudoMaskPipeline(modality="both", csc_weights=csc,
+                              dino_weights=dino, ncut_cfg=NCutConfig(**FREEMASK),
+                              resolution_scale=2, voxel_size=VOXEL,
+                              device=dev)
+    cnt = reset_counters()
+    native.reset_calls()
+    first = pipe.process_scenes(scenes)
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in cnt.items()}
+    t_first = dict(pipe.timings)
+    maps = native.calls()["build_neighbor_map_padded"]
+    if maps != 5 * len(scenes):
+        raise AssertionError(f"pseudo both: the native k3 map served {maps} "
+                             f"levels, expected {5 * len(scenes)}")
+    for k, per in PER_CSC_FORWARD.items():
+        if got[k] != per * len(scenes):
+            raise AssertionError(f"pseudo both: {k} launched {got[k]} times,"
+                                 f" expected {per * len(scenes)}")
+    share = dict(pipe.hit_share)
+    if not min(share.values()) > 0:
+        raise AssertionError(f"pseudo both: no voxel hit by a frame {share}")
+    again = pipe.process_scenes(scenes)
+    for s in scenes:
+        cloud, masks = first[s["scene_name"]]
+        if (masks.dtype != bool or masks.ndim != 2
+                or masks.shape[0] != len(s["full_coords"])
+                or cloud.shape != s["full_coords"].shape):
+            raise AssertionError(f"pseudo both: masks {masks.dtype} "
+                                 f"{masks.shape}")
+        if not np.array_equal(masks, again[s["scene_name"]][1]):
+            raise AssertionError("pseudo both: two calls differ")
+
+    frame = scenes[0]["images"][:1]
+    card_feats = pipe.dino(frame)
+    ms = cuda_ms(lambda: pipe.dino(frame), reps=5)
+    t0 = time.perf_counter()
+    cpu_feats = DinoNet(state_dict=load_dino_weights(dino), device="cpu")(
+        frame)
+    t_cpu = time.perf_counter() - t0
+    scale = cpu_feats.abs().max().item()
+    err = (card_feats.cpu() - cpu_feats).abs().max().item()
+    bound = 1e3 * dino_flops(*FRAME) / PEAK_FLOPS[torch.float32]
+    n_frames = PSEUDO_FRAMES * len(scenes)
+    t = pipe.timings
+    stages = ", ".join(f"{k} {1e3 * v:.0f}ms (first call "
+                       f"{1e3 * t_first.get(k, 0.0):.0f})"
+                       for k, v in t.items())
+    log(f"pseudo both ({len(scenes)} scenes x {PSEUDO_FRAMES} frames of "
+        f"{FRAME[0]}x{FRAME[1]}, {card}): voxels hit by a frame "
+        f"{', '.join(f'{v:.3f}' for v in share.values())}; masks "
+        f"{[first[s['scene_name']][1].shape for s in scenes]}; two calls "
+        f"equal; launches {dict((k, v) for k, v in got.items() if v)}")
+    log(f"  per frame: dino {1e3 * t['dino'] / n_frames:.3f} ms (host clock; "
+        f"one call {ms:.3f} ms CUDA events, f32 bound {bound:.3f} ms = "
+        f"{dino_flops(*FRAME) / 1e9:.1f} GFLOP / 67 TFLOP/s, "
+        f"{bound / ms:.1%} of it), project "
+        f"{1e3 * t['project'] / n_frames:.3f} ms; per call: {stages}")
+    log(f"  DINO card vs CPU (one frame, ViT-S/8 + upsample): max_rel_err "
+        f"{err / scale:.3e} (tol {DINO_TOL:g}); the CPU took {t_cpu:.1f}s")
+    from torch.profiler import ProfilerActivity
+
+    rows, busy, window = _traced(lambda: pipe.dino(frame),
+                                 [ProfilerActivity.CUDA], reps=2)
+    if rows:
+        log(f"  DINO profile (one frame): device busy {busy:.2f}ms of "
+            f"{window:.2f}ms, idle share {1 - busy / window:.1%}")
+        for r_ms, name, n in rows[:8]:
+            log(f"  {r_ms:8.3f}ms {100 * r_ms / busy:5.1f}%  x{n:<4d} "
+                f"{name[:90]}")
+    else:
+        log("  DINO profile: no device time in the trace (not measured)")
+    s0 = scenes[0]
+    world = torch.from_numpy((s0["coords"].astype(np.float32) + 0.5)
+                             * VOXEL).to(dev)
+    valid = torch.ones(len(world), dtype=torch.bool, device=dev)
+    pose = torch.from_numpy(s0["poses"][:1].astype(np.float32)).to(dev)
+    K = torch.from_numpy(s0["intrinsics"].astype(np.float32)).to(dev)
+    rows, busy, window = _traced(lambda: project_2d_features(
+        card_feats, world, valid, pose, K, *FRAME), [ProfilerActivity.CUDA],
+        reps=2)
+    if rows:
+        log(f"  projection profile (one frame, {len(world)} voxels): device "
+            f"busy {busy:.3f}ms of {window:.3f}ms")
+        for r_ms, name, n in rows[:6]:
+            log(f"  {r_ms:8.3f}ms {100 * r_ms / busy:5.1f}%  x{n:<4d} "
+                f"{name[:90]}")
+    if not err <= DINO_TOL * scale:
+        raise AssertionError(f"pseudo both: DINO card vs CPU {err} > "
+                             f"{DINO_TOL} * {scale}")
+    log(f"phase pseudo_both: {time.perf_counter() - t_phase:.1f}s")
+    del pipe
+    torch.cuda.empty_cache()
+    return got
+
+
+def phase_pseudo_main(dev):
+    """`python -m unscene3d_torch.pseudo_masks_main` on the card, run as
+    runpy runs it, on a ScanNet-layout directory written here: 2 meshes
+    (scannet200_insseg `.pth` tuples, `_vh_clean_2.ply` with faces,
+    `axisAlignment` meta files, `train.txt`), JPEG frames with poses and
+    intrinsics, and the seeded random checkpoints, with the overrides of
+    scripts/unsupervised/pseudo_dino_2d3d.sh (`freemask.modality=both`; the
+    card's machine has PIL). Asserts that the native segment_mesh served
+    every scene, the CSC forward's launches and both npys per scene."""
+    import os
+    import runpy
+
+    from unscene3d_torch import native
+    from unscene3d_torch.data.synthetic import (make_mesh_scene, ring_poses,
+                                                write_scannet_scene)
+
+    t_phase = time.perf_counter()
+    root = _smoke_dir("pseudo_main")
+    ins, scans = os.path.join(root, "insseg"), os.path.join(root, "scans")
+    names = [f"scene{i:04d}_00" for i in range(2)]
+    verts = {}
+    for i, name in enumerate(names):
+        mesh = make_mesh_scene(**MAIN_MESH, seed=i)
+        align = np.eye(4)
+        align[:3, 3] = [-4.0, -4.0, 0.0]
+        centre = (mesh["vertices"].min(0) + mesh["vertices"].max(0)) / 2
+        write_scannet_scene(ins, scans, name, mesh, alignment=align,
+                            poses=ring_poses(centre, 7.0, 2.5, MAIN_FRAMES),
+                            seed=i)
+        verts[name] = len(mesh["vertices"])
+    with open(os.path.join(ins, "train.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    csc, dino = _write_checkpoints(root)
+    save = os.path.join(root, "out")
+    argv = ["pseudo_masks_main", "freemask.modality=both",
+            "freemask.affinity_tau=0.6", "data.segments_min_vert_nums=[50]",
+            f"data.scannet_path={ins}", f"data.scannet_images_path={scans}",
+            f"net.weights_for_inner_model={csc}",
+            f"image_data.model_checkpoint={dino}", f"misc.save_dir={save}"]
+    t_write = time.perf_counter() - t_phase
+    cnt = reset_counters()
+    native.reset_calls()
+    old_argv = sys.argv
+    sys.argv = argv
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("unscene3d_torch.pseudo_masks_main",
+                         run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = old_argv
+    t_run = time.perf_counter() - t0
+    got = {k: fn.launches for k, fn in cnt.items()}
+    calls = native.calls()["segment_mesh"]
+    if calls != len(names):
+        raise AssertionError(f"pseudo main: segment_mesh served {calls} "
+                             f"scenes of {len(names)}")
+    for k, per in PER_CSC_FORWARD.items():
+        if got[k] != per * len(names):
+            raise AssertionError(f"pseudo main: {k} launched {got[k]} times,"
+                                 f" expected {per * len(names)}")
+    shapes = []
+    for name in names:
+        cloud = np.load(os.path.join(save, f"{name}_cloud.npy"))
+        masks = np.load(os.path.join(save, f"{name}_masks.npy"))
+        if (cloud.shape != (verts[name], 3) or cloud.dtype != np.float32
+                or masks.dtype != bool or masks.ndim != 2
+                or masks.shape[0] != verts[name]):
+            raise AssertionError(f"pseudo main {name}: cloud {cloud.shape} "
+                                 f"{cloud.dtype}, masks {masks.shape} "
+                                 f"{masks.dtype}")
+        shapes.append(masks.shape)
+    log(f"pseudo main (python -m unscene3d_torch.pseudo_masks_main, "
+        f"modality both, {len(names)} scenes of {verts[names[0]]} vertices, "
+        f"{MAIN_FRAMES} JPEG frames each): {t_run:.1f}s (layout written in "
+        f"{t_write:.1f}s); segment_mesh {calls} calls "
+        f"{1e3 * native.seconds()['segment_mesh']:.0f}ms; masks {shapes}; "
+        f"launches {dict((k, v) for k, v in got.items() if v)}")
+    log(f"phase pseudo_main: {time.perf_counter() - t_phase:.1f}s")
+    torch.cuda.empty_cache()
+    return got
+
+
 def phase_pseudo_pipeline(dev):
     """The bench scene through PseudoMaskPipeline(modality="geom") at full
     width (Res16UNet34C, seeded random weights, res_2 features), bf16 and
@@ -1647,23 +1952,9 @@ def phase_pseudo_pipeline(dev):
     (P, K) bool over the full cloud, a second call timed by stage. The CSC
     graph's k3 maps come from the native library (asserted)."""
     from unscene3d_torch import native
-    from unscene3d_torch.data.synthetic import make_scene
-    from unscene3d_torch.ops.hashing import sparse_quantize
     from unscene3d_torch.pseudo.pipeline import PseudoMaskPipeline
 
-    raw = make_scene(**BENCH_SCENE, seed=0)
-    t0 = time.perf_counter()
-    vox, umap, _ = sparse_quantize(raw["xyz"], VOXEL)
-    seg = raw["segments"][umap]
-    uniq = np.unique(seg)
-    conn = np.column_stack([uniq[:-1], uniq[1:]])
-    scene = dict(scene_name="bench0", coords=vox,
-                 feats=raw["features"][umap] - 0.5, segment_ids=[seg],
-                 segment_connectivity=[np.vstack([conn, conn[:, ::-1]])],
-                 full_coords=raw["xyz"])
-    log(f"pseudo pipeline scene: {len(raw['xyz'])} points, {len(vox)} "
-        f"voxels, {len(uniq)} segments (quantize "
-        f"{time.perf_counter() - t0:.2f}s)")
+    scene = _pseudo_scene(0)
     launches = {}
     for dt in (torch.bfloat16, torch.float32):
         pipe = PseudoMaskPipeline(modality="geom", device=dev, dtype=dt,
@@ -1686,8 +1977,9 @@ def phase_pseudo_pipeline(dev):
         again = pipe.process_scenes([scene])
         cloud, masks = first["bench0"]
         if (masks.dtype != bool or masks.ndim != 2
-                or masks.shape[0] != len(raw["xyz"]) or masks.shape[1] < 1
-                or cloud.shape != raw["xyz"].shape):
+                or masks.shape[0] != len(scene["full_coords"])
+                or masks.shape[1] < 1
+                or cloud.shape != scene["full_coords"].shape):
             raise AssertionError(f"pseudo pipeline {dt}: masks "
                                  f"{masks.dtype} {masks.shape}")
         if not np.array_equal(masks, again["bench0"][1]):
@@ -2151,6 +2443,8 @@ def main() -> int:
     phase_pseudo_row(dev)
     launches["pseudo"] = phase_pseudo_pipeline(dev)
     phase_pseudo_parity(dev)
+    launches["pseudo_both"] = phase_pseudo_both(dev, card)
+    launches["pseudo_main"] = phase_pseudo_main(dev)
 
     tbatch = train_batch()
     tbatch_csr = train_batch(CSR_LEVELS)

@@ -253,6 +253,23 @@ def test_port_imports_no_jax():
         "exp = build_experiment(cfg)\n"
         "res = exp.evaluate(exp.validation_dataset, max_scenes=1)\n"
         "assert {'all_ap', 'all_ap_50%', 'all_ap_25%'} <= set(res)\n"
+        "from unscene3d_torch import native, pseudo_masks_main\n"
+        "from unscene3d_torch.data import ply, scannet_pseudo\n"
+        "from unscene3d_torch.data.synthetic import make_mesh_scene\n"
+        "from unscene3d_torch.models import torch_convert\n"
+        "from unscene3d_torch.models.encoders_2d import load_2d_model\n"
+        "mesh = make_mesh_scene(grid=16, num_objects=2)\n"
+        "seg, _ = native.segment_mesh(mesh['vertices'], mesh['faces'],"
+        " mesh['colors'] / 255.0, 0.005, 5)\n"
+        "assert native.calls()['segment_mesh'] == 1\n"
+        "state = torch_convert.convert_res16unet("
+        "torch_convert.random_me_state_dict())\n"
+        "pipe = PseudoMaskPipeline(modality='both', device='cpu',"
+        " voxel_size=0.15, ncut_cfg=cfg)\n"
+        "pipe.csc.model.load_state_dict(state)\n"
+        "f = load_2d_model('DinoNet')(device='cpu')(np.random.rand(1, 24, 32,"
+        " 3))\n"
+        "assert tuple(f.shape) == (1, 24, 32, 384)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax',"
         " 'jaxlib', 'unscene3d_tpu', 'benchmarks')]\n"
         "assert not bad, bad\n"

@@ -26,9 +26,11 @@ from unscene3d_tpu.data.collate import fps_numpy as jax_fps
 from unscene3d_tpu.ops import window_conv as jwc
 from unscene3d_tpu.ops.kernel_maps import (
     build_neighbor_map_padded as jax_nbr_padded)
+from tests.test_native import grid_mesh as jax_grid_mesh
 from unscene3d_torch import native
 from unscene3d_torch.data.collate import FreeMaskCollator, fps_numpy
-from unscene3d_torch.data.synthetic import make_batch, make_scene
+from unscene3d_torch.data.synthetic import (make_batch, make_mesh_scene,
+                                            make_scene)
 from unscene3d_torch.ops.kernel_maps import (KERNEL3_OFFSETS,
                                              build_neighbor_map_padded)
 from unscene3d_torch.ops.win_graph import build_win_graph
@@ -207,3 +209,71 @@ def test_coordinates_out_of_the_hashable_range_raise(native_route):
     with pytest.raises(OverflowError, match="batch index"):
         build_neighbor_map_padded(np.array([[256, 0, 0, 0]], np.int32), 128,
                                   native=native_route)
+
+
+@pytest.mark.parametrize("grid,thr,min_verts", [(60, 0.005, 20),
+                                                (60, 0.005, 50),
+                                                (40, 0.02, 4)])
+def test_segment_mesh_bitwise(grid, thr, min_verts):
+    """The port's C++ equals the JAX package's C++, and the port's numpy
+    twin the JAX package's numpy path. The JAX package's two paths are not
+    one algorithm (union by rank in f32 against a fixed root in f64): on
+    these meshes their partitions differ (e.g. 58 against 59 segments), so
+    C++ against numpy is held where tests/test_native.py holds it, below."""
+    mesh = make_mesh_scene(grid=grid, num_objects=6, seed=grid)
+    v, f = mesh["vertices"], mesh["faces"]
+    c = mesh["colors"].astype(np.float32) / 255.0
+    before = native.segment_mesh.calls
+    seg, pairs = native.segment_mesh(v, f, c, thr, min_verts)
+    assert native.segment_mesh.calls == before + 1
+    assert seg.dtype == pairs.dtype == np.int32 and seg.shape == (len(v),)
+    n = seg.max() + 1
+    assert set(np.unique(seg)) == set(range(n)) and 3 < n < len(v) // 10
+    assert pairs.shape[1] == 2 and (pairs[:, 0] != pairs[:, 1]).all()
+    jseg, jpairs = jnative.segment_mesh(v, f, c, thr, min_verts)
+    np.testing.assert_array_equal(seg, jseg)
+    np.testing.assert_array_equal(pairs, jpairs)
+    tseg, tpairs = native.segment_mesh_numpy(v, f, c, thr, min_verts)
+    assert native.segment_mesh.calls == before + 1
+    nseg, npairs = jnative._segment_mesh_numpy(v, f.astype(np.int32), c,
+                                               thr, min_verts)
+    np.testing.assert_array_equal(tseg, nseg)
+    np.testing.assert_array_equal(tpairs, npairs)
+
+
+@pytest.mark.parametrize("case", [dict(nx=12, ny=12, seed=3, kthr=0.02,
+                                       min_verts=4),
+                                  dict(nx=20, ny=20, seed=0, kthr=0.01,
+                                       min_verts=5)])
+def test_segment_mesh_equals_both_jax_paths_on_their_fixtures(case):
+    """tests/test_native.py's meshes, where its C++ and numpy paths agree:
+    the port's C++ equals both."""
+    verts, faces, colors = jax_grid_mesh(case["nx"], case["ny"],
+                                         seed=case["seed"])
+    args = (case["kthr"], case["min_verts"])
+    seg, pairs = native.segment_mesh(verts, faces, colors, *args)
+    for name, (rs, rp) in (
+            ("JAX C++", jnative.segment_mesh(verts, faces, colors, *args)),
+            ("JAX numpy", jnative._segment_mesh_numpy(verts, faces, colors,
+                                                      *args)),
+            ("numpy twin", native.segment_mesh_numpy(verts, faces, colors,
+                                                     *args))):
+        np.testing.assert_array_equal(seg, rs, err_msg=name)
+        np.testing.assert_array_equal(pairs, rp, err_msg=name)
+
+
+def test_segment_mesh_grows_its_pair_buffer_and_checks_its_input():
+    """A mesh of one face per segment needs more pairs than the first
+    buffer's 1024: the wrapper retries with the size the C++ asks for."""
+    mesh = make_mesh_scene(grid=80, num_objects=0, seed=1)
+    v, f = mesh["vertices"], mesh["faces"]
+    c = np.random.RandomState(0).rand(len(v), 3).astype(np.float32)
+    seg, pairs = native.segment_mesh(v, f, c, 1e-9, 1)
+    jseg, jpairs = jnative.segment_mesh(v, f, c, 1e-9, 1)
+    assert len(pairs) > 1024
+    np.testing.assert_array_equal(seg, jseg)
+    np.testing.assert_array_equal(pairs, jpairs)
+    with pytest.raises(ValueError, match="out of range"):
+        native.segment_mesh(v, f + len(v), c)
+    with pytest.raises(ValueError, match="colors"):
+        native.segment_mesh(v, f, c[:-1])

@@ -67,6 +67,7 @@ from unscene3d_torch.bench.pseudo import \
     object_recovery as port_object_recovery
 from unscene3d_torch.data.synthetic import make_segment_scene
 from unscene3d_torch.eval.nms import matrix_nms
+from unscene3d_torch.models.encoders_2d import load_2d_model
 from unscene3d_torch.models.backbone import Res16UNet14A
 from unscene3d_torch.models.weights import load_flax_backbone_variables
 from unscene3d_torch.ops.kernel_maps import build_sparse_graph
@@ -611,13 +612,15 @@ def test_pipeline_query_method_matches_jax(pipeline_pair):
 
 
 def test_pipeline_unported_options_raise():
-    for modality in ("color", "both"):
-        with pytest.raises(NotImplementedError, match="DINO"):
-            PseudoMaskPipeline(modality=modality, device="cpu")
-    with pytest.raises(NotImplementedError, match="CSC checkpoint"):
-        PseudoMaskPipeline(csc_weights="model_weights/csc.pth", device="cpu")
     with pytest.raises(ValueError):
         PseudoMaskPipeline(modality="depth", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        PseudoMaskPipeline(modality="color", model_2d="LSegNet",
+                           device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        load_2d_model("LSegNet")
+    with pytest.raises(KeyError, match="unknown 2d model"):
+        load_2d_model("CLIPNet")
     pipe = PseudoMaskPipeline(device="cpu")
     with pytest.raises(NotImplementedError, match="visualize"):
         pipe.process_scenes([], save_visualizations=True)

@@ -158,3 +158,112 @@ def make_segment_scene(seed: int = 0, num_segments: int | None = None,
     return dict(features=features, unique_segments=uniq,
                 connectivity=np.asarray(conn, np.int32), segment_ids=seg_ids,
                 coords=coords, objects=objects)
+
+
+def make_mesh_scene(grid: int = 40, spacing: float = 0.05,
+                    num_objects: int = 4, seed: int = 0) -> dict:
+    """A ScanNet-like triangle mesh: a (grid x grid) height field over the
+    floor, raised into `num_objects` axis-aligned boxes, colored per box
+    with noise. Returns vertices (V, 3) f32, faces (F, 3) int32, colors
+    (V, 3) uint8 and instance ids (V,) int32 (-1 on the floor)."""
+    r = np.random.RandomState(seed)
+    xs, ys = np.meshgrid(np.arange(grid), np.arange(grid), indexing="ij")
+    inst = np.full((grid, grid), -1, np.int64)
+    z = np.zeros((grid, grid))
+    for k in range(num_objects):
+        lo = r.randint(1, grid - grid // 4, 2)
+        hi = lo + r.randint(grid // 8 + 1, grid // 4 + 1, 2)
+        box = (xs >= lo[0]) & (xs < hi[0]) & (ys >= lo[1]) & (ys < hi[1])
+        inst[box] = k
+        z[box] = r.uniform(0.3, 1.0)
+    verts = np.column_stack([xs.ravel() * spacing, ys.ravel() * spacing,
+                             z.ravel()])
+    verts += r.normal(0, spacing * 0.02, verts.shape)
+    base = r.uniform(0, 255, (num_objects + 1, 3))
+    colors = base[inst.ravel() + 1] + r.normal(0, 4.0, (grid * grid, 3))
+    a = (xs[:-1, :-1] * grid + ys[:-1, :-1]).ravel()
+    faces = np.concatenate([np.column_stack([a, a + 1, a + grid]),
+                            np.column_stack([a + 1, a + grid + 1, a + grid])])
+    return dict(vertices=verts.astype(np.float32),
+                faces=faces.astype(np.int32),
+                colors=colors.clip(0, 255).astype(np.uint8),
+                instances=inst.ravel().astype(np.int32))
+
+
+def ring_poses(center, radius: float, height: float, n: int) -> np.ndarray:
+    """(n, 4, 4) camera-to-world poses on a ring of `radius` round
+    `center` at `height` above it, each facing the centre (camera x right,
+    y down, z forward, as the pinhole projection reads them)."""
+    center = np.asarray(center, np.float64)
+    poses = np.zeros((n, 4, 4))
+    for i, a in enumerate(2 * np.pi * np.arange(n) / n):
+        eye = center + np.array([radius * np.cos(a), radius * np.sin(a),
+                                 height])
+        fwd = (center - eye) / np.linalg.norm(center - eye)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        poses[i, :3, :3] = np.column_stack([right, np.cross(fwd, right),
+                                            fwd])
+        poses[i, :3, 3] = eye
+        poses[i, 3, 3] = 1.0
+    return poses
+
+
+def write_scannet_scene(insseg_dir: str, scans_dir: str, name: str,
+                        mesh: dict, alignment: np.ndarray, poses: np.ndarray,
+                        image_resolution=(480, 640), seed: int = 0) -> None:
+    """Write one scene in the layouts that data/scannet_pseudo.py reads:
+    `{insseg_dir}/{name}.pth` (points, colors, semantic labels, instance
+    ids), `{scans_dir}/{name}/{name}_vh_clean_2.ply` (the mesh with faces)
+    and `{name}.txt` (`axisAlignment`). The mesh is taken in the aligned
+    frame and written in the scan's own frame (the inverse of
+    `alignment`). For the V `poses` (aligned frame), `color/` holds
+    20 (V - 1) + 1 JPEGs of smooth seeded noise at `image_resolution`, of
+    which every 20th (the data set's frame_skip) is its own frame and the
+    others repeat its bytes, with their `pose/*.txt` and
+    `intrinsic/intrinsic_color.txt` (ScanNet's focal length at that
+    resolution). Needs torch (the .pth) and PIL (the frames)."""
+    frame_skip = 20
+    import io
+    import os
+
+    import torch
+
+    from unscene3d_torch.data.ply import write_ply
+
+    scan = os.path.join(scans_dir, name)
+    os.makedirs(scan, exist_ok=True)
+    os.makedirs(insseg_dir, exist_ok=True)
+    homo = np.column_stack([mesh["vertices"].astype(np.float64),
+                            np.ones(len(mesh["vertices"]))])
+    verts = (homo @ np.linalg.inv(alignment).T)[:, :3].astype(np.float32)
+    with open(os.path.join(scan, f"{name}.txt"), "w") as f:
+        f.write("axisAlignment = "
+                + " ".join(f"{v:.17g}" for v in alignment.ravel()) + "\n")
+    inst = mesh["instances"]
+    torch.save((verts, mesh["colors"], (inst >= 0).astype(np.int32), inst),
+               os.path.join(insseg_dir, f"{name}.pth"))
+    write_ply(os.path.join(scan, f"{name}_vh_clean_2.ply"), verts,
+              colors=mesh["colors"], faces=mesh["faces"])
+    from PIL import Image
+
+    h, w = image_resolution
+    r = np.random.RandomState(seed)
+    K = np.eye(4)
+    K[0, 0] = K[1, 1] = 1170.187988 * w / 1296.0
+    K[0, 2], K[1, 2] = (w - 1) / 2.0, (h - 1) / 2.0
+    for sub in ("color", "pose", "intrinsic"):
+        os.makedirs(os.path.join(scan, sub), exist_ok=True)
+    np.savetxt(os.path.join(scan, "intrinsic", "intrinsic_color.txt"), K)
+    for i, pose in enumerate(poses):
+        coarse = r.uniform(0, 255, (h // 16 + 1, w // 16 + 1, 3))
+        img = Image.fromarray(coarse.astype(np.uint8)).resize((w, h))
+        buf = io.BytesIO()
+        img.save(buf, format="JPEG", quality=90)
+        for j in range(frame_skip if i < len(poses) - 1 else 1):
+            fid = i * frame_skip + j
+            with open(os.path.join(scan, "color", f"{fid:06d}.jpg"),
+                      "wb") as f:
+                f.write(buf.getvalue())
+        np.savetxt(os.path.join(scan, "pose", f"{i * frame_skip:06d}.txt"),
+                   pose)

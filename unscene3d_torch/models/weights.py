@@ -17,6 +17,8 @@ module's compute dtype, so under bf16 the sparse-conv kernels and the
 transformer layers' Dense params are rounded once here rather than at every
 forward; a training model (train/loop.py, `model.float()`) keeps f32
 masters, so the JAX params and batch_stats come across unrounded.
+`load_flax_dino_variables` bridges the JAX DINO ViT (`dino_state_from_flax`:
+Dense kernels transposed, the patch conv from HWIO to OIHW).
 """
 
 from __future__ import annotations
@@ -98,20 +100,26 @@ def torch_params_from_flax(params) -> dict[str, torch.Tensor]:
     return torch_state_from_flax({"params": params})
 
 
-def load_flax_variables(model: torch.nn.Module, variables) -> None:
-    """Copy the JAX variables into `model`; raises on missing or unused
-    keys and on shape mismatches."""
-    state = torch_state_from_flax(variables)
+def load_state_strict(model: torch.nn.Module, state: dict,
+                      what: str = "weight bridge") -> None:
+    """`model.load_state_dict(state)`, raising on missing or unused keys and
+    on shape mismatches, with `what` in the message."""
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     unused = sorted(set(state) - set(own))
     if missing or unused:
-        raise KeyError(f"weight bridge: missing {missing}, unused {unused}")
+        raise KeyError(f"{what}: missing {missing}, unused {unused}")
     for k, v in state.items():
         if tuple(own[k].shape) != tuple(v.shape):
-            raise ValueError(f"weight bridge: {k} has shape {tuple(v.shape)}, "
+            raise ValueError(f"{what}: {k} has shape {tuple(v.shape)}, "
                              f"model wants {tuple(own[k].shape)}")
     model.load_state_dict(state, strict=True)
+
+
+def load_flax_variables(model: torch.nn.Module, variables) -> None:
+    """Copy the JAX variables into `model`; raises on missing or unused
+    keys and on shape mismatches."""
+    load_state_strict(model, torch_state_from_flax(variables))
 
 
 def load_flax_backbone_variables(backbone: torch.nn.Module, variables) -> None:
@@ -121,6 +129,50 @@ def load_flax_backbone_variables(backbone: torch.nn.Module, variables) -> None:
     shape mismatches, as `load_flax_variables` does."""
     load_flax_variables(_Prefixed(backbone), {
         coll: {"backbone": tree} for coll, tree in variables.items()})
+
+
+_DINO_MODULES = {"norm1": "norm1", "norm2": "norm2", "attn/qkv": "attn.qkv",
+                 "attn/proj": "attn.proj", "mlp_fc1": "mlp.fc1",
+                 "mlp_fc2": "mlp.fc2"}
+
+
+def dino_state_from_flax(variables) -> dict[str, torch.Tensor]:
+    """The JAX ViTExtractor's `{"params"}` tree -> the DINO state dict of
+    `encoders_2d/dino.py:ViTExtractor`: Dense kernels transposed, the patch
+    conv from HWIO to OIHW, LayerNorm `scale` -> `weight`. Raises KeyError
+    on a module it does not know."""
+    state = {}
+    for path, arr in _flatten(variables["params"]):
+        *mods, leaf = path
+        arr = np.asarray(arr, np.float32)
+        if not mods:                                   # cls_token, pos_embed
+            name = leaf
+        elif mods == ["patch_embed"]:
+            if leaf == "kernel":
+                arr, leaf = arr.transpose(3, 2, 0, 1), "weight"
+            name = f"patch_embed.proj.{leaf}"
+        else:
+            m = re.fullmatch(r"block_(\d+)", mods[0])
+            sub = "/".join(mods[1:])
+            if mods == ["norm"]:
+                prefix = "norm"
+            elif m and sub in _DINO_MODULES:
+                prefix = f"blocks.{m.group(1)}.{_DINO_MODULES[sub]}"
+            else:
+                raise KeyError(f"DINO bridge: unknown module {'/'.join(mods)}")
+            if leaf == "kernel":
+                arr, leaf = arr.T, "weight"
+            elif leaf == "scale":
+                leaf = "weight"
+            name = f"{prefix}.{leaf}"
+        state[name] = torch.tensor(arr)
+    return state
+
+
+def load_flax_dino_variables(vit: torch.nn.Module, variables) -> None:
+    """Copy the JAX ViTExtractor's variables into the port's ViTExtractor;
+    raises on missing or unused keys and on shape mismatches."""
+    load_state_strict(vit, dino_state_from_flax(variables), "DINO bridge")
 
 
 class _Prefixed(torch.nn.Module):

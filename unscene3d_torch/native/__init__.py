@@ -1,17 +1,17 @@
 """The port's native host library: the k3 neighbour maps, the window-table
-passes and furthest point sampling in C++ (`kernel_maps.cpp`,
-`point_ops.cpp`, the port's own copies of the JAX package's sources), bound
-through ctypes.
+passes, furthest point sampling and the Felzenszwalb mesh segmentator in C++
+(`kernel_maps.cpp`, `point_ops.cpp`, `segmentator.cpp`, the port's own
+copies of the JAX package's sources), bound through ctypes.
 
 The library is built with g++ at first use into the repository's `build/`
-directory (gitignored): one g++ run over both sources, written to a temp
+directory (gitignored): one g++ run over the sources, written to a temp
 file and renamed into place under a file lock, so concurrent processes never
 load half a build. The file name carries a hash of the sources, the flags,
 the compiler and what `-march=native` resolves to on this host, so an edit
 rebuilds and a tree copied to another machine never loads a stale build. A
 failed build raises with g++'s output, and a nonzero return code raises:
 there is no fallback. The numpy twins stay beside each caller
-(`native=False`) for the tests.
+(`native=False`), and `segment_mesh_numpy` here, for the tests.
 
 Each wrapper counts its calls in `<wrapper>.calls` and their wall time in
 `<wrapper>.seconds`, so that a run can show that this library served it and
@@ -32,7 +32,8 @@ import time
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_DIR, s) for s in ("kernel_maps.cpp", "point_ops.cpp")]
+SOURCES = [os.path.join(_DIR, s)
+           for s in ("kernel_maps.cpp", "point_ops.cpp", "segmentator.cpp")]
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_DIR)), "build",
                          "native")
 # -ffp-contract=off: an FMA contraction would change the f32 rounding of
@@ -43,6 +44,7 @@ FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # coords, n, offsets, k, n_pad, fill, out
     "build_neighbor_map_padded": [_P, _I, _P, _I, _I, _I, _P],
@@ -52,6 +54,9 @@ _SIGNATURES = {
     "win_lo_reg": [_P, _I, _I, _P],
     # nbr, n_pad, tile, lo_of, w_reg, lidx, sp_out, sp_in, sp_k, cap
     "win_fill_lidx": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I],
+    # vertices, n_v, faces, n_f, colors, kthr, seg_min_verts, comps, pairs,
+    # max_pairs
+    "segment_mesh": [_P, _I, _P, _I, _P, _F, _I, _P, _P, _I],
 }
 
 _LOCK = threading.Lock()
@@ -229,8 +234,101 @@ def win_fill_lidx(nbr: np.ndarray, n_pad: int, tile: int, lo_of: np.ndarray,
     return lidx, sp[0, :n], sp[1, :n], sp[2, :n]
 
 
+@_counted
+def segment_mesh(vertices: np.ndarray, faces: np.ndarray, colors: np.ndarray,
+                 kthr: float = 0.005, seg_min_verts: int = 20
+                 ) -> tuple[np.ndarray, np.ndarray]:
+    """Felzenszwalb mesh oversegmentation: (segment ids (V,) int32,
+    consecutive; connectivity (E, 2) int32, the sorted directed pairs of
+    adjacent segments). The reference's felzenszwalb_cpp.segment_mesh
+    (utils/cpp_utils/segmentator.cpp:253-255)."""
+    vertices = np.ascontiguousarray(vertices, np.float32)
+    faces = np.ascontiguousarray(faces, np.int32)
+    colors = np.ascontiguousarray(colors, np.float32)
+    if (vertices.ndim != 2 or vertices.shape[1] != 3
+            or faces.shape[1:] != (3,) or colors.shape != vertices.shape):
+        raise ValueError(f"vertices {vertices.shape}, faces {faces.shape}, "
+                         f"colors {colors.shape}")
+    if faces.size and (faces.min() < 0 or faces.max() >= len(vertices)):
+        raise ValueError("a face indexes a vertex out of range")
+    lib = load()
+    comps = np.empty(len(vertices), np.int32)
+    cap = max(3 * len(faces), 1024)
+    while True:
+        pairs = np.empty((cap, 2), np.int32)
+        n = lib.segment_mesh(_ptr(vertices), len(vertices), _ptr(faces),
+                             len(faces), _ptr(colors), float(kthr),
+                             int(seg_min_verts), _ptr(comps), _ptr(pairs), cap)
+        if n >= 0:
+            return comps, pairs[:n].copy()
+        cap = -n    # the pair buffer was too small: n = -needed
+
+
+def segment_mesh_numpy(vertices, faces, colors, kthr: float = 0.005,
+                       seg_min_verts: int = 20):
+    """The numpy twin of `segment_mesh` (the JAX package's
+    `_segment_mesh_numpy`: f64 normals, a sequential union-find in Python;
+    slow), for the tests."""
+    vertices = np.asarray(vertices, np.float32)
+    faces = np.asarray(faces, np.int64)
+    colors = np.asarray(colors, np.float32)
+    nv = len(vertices)
+    i1, i2, i3 = faces[:, 0], faces[:, 1], faces[:, 2]
+    fn = np.cross(vertices[i2] - vertices[i1], vertices[i3] - vertices[i1])
+    normals = np.zeros((nv, 3), np.float64)
+    counts = np.zeros(nv, np.int64)
+    order = np.concatenate([i1, i2, i3])
+    fns = np.concatenate([fn, fn, fn])
+    # the mean of the incident face normals
+    np.add.at(normals, order, fns)
+    np.add.at(counts, order, 1)
+    normals /= np.maximum(counts, 1)[:, None]
+
+    ea = np.concatenate([i1, i1, i3])
+    eb = np.concatenate([i2, i3, i2])
+    d = vertices[eb] - vertices[ea]
+    d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
+    dot = (normals[ea] * normals[eb]).sum(1)
+    color_dist = np.abs(colors[ea] - colors[eb]).sum(1)
+    dist = (1.0 - dot) * color_dist
+    dot2 = (normals[eb] * d).sum(1)
+    convex = (dot2 > 0) & (color_dist < 0.05)
+    dist = np.where(convex, dist * dist, dist)
+
+    order = np.argsort(dist, kind="stable")
+    parent = np.arange(nv)
+    size = np.ones(nv, np.int64)
+    thr = np.full(nv, kthr, np.float64)
+
+    def find(x):
+        root = x
+        while parent[root] != root:
+            root = parent[root]
+        while parent[x] != root:
+            parent[x], x = root, parent[x]
+        return root
+
+    for e in order:
+        a, b = find(ea[e]), find(eb[e])
+        if a != b and dist[e] <= thr[a] and dist[e] <= thr[b]:
+            parent[b] = a
+            size[a] += size[b]
+            thr[a] = dist[e] + kthr / size[a]
+    for e in order:
+        a, b = find(ea[e]), find(eb[e])
+        if a != b and (size[a] < seg_min_verts or size[b] < seg_min_verts):
+            parent[b] = a
+            size[a] += size[b]
+    roots = np.array([find(v) for v in range(nv)])
+    _, comps = np.unique(roots, return_inverse=True)
+    s1, s2 = comps[ea], comps[eb]
+    keep = s1 != s2
+    pairs = np.unique(np.column_stack([s1[keep], s2[keep]]), axis=0)
+    return comps.astype(np.int32), pairs.astype(np.int32)
+
+
 WRAPPERS = (build_neighbor_map_padded, furthest_point_sample, win_lo_reg,
-            win_fill_lidx)
+            win_fill_lidx, segment_mesh)
 
 
 def calls() -> dict:

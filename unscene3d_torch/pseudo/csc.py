@@ -5,9 +5,10 @@ Runs Res16UNet34C in the multires call mode, takes the `res_{scale}` feature
 map and broadcasts it back to stride 1 down the sparse graph's parent chain
 (every stride-1 voxel has one ancestor at every level, so low-res features
 are gathered, not nearest-neighbour matched). On the card one scene costs 47
-launches of kernel 1 and 8 of kernel 2 (no pools, no segment sum). Without
-given variables the weights are seeded random ones; loading the CSC
-checkpoint waits for a `.pth` that the repository does not hold.
+launches of kernel 1 and 8 of kernel 2 (no pools, no segment sum). The
+weights come from a converted CSC checkpoint
+(`models/torch_convert.py:load_csc_backbone`), from a JAX backbone's
+variables (the tests), or else are seeded random ones.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 
 from unscene3d_torch.models.backbone import Res16UNet34C
 from unscene3d_torch.models.weights import (init_random_,
-                                            load_flax_backbone_variables)
+                                            load_flax_backbone_variables,
+                                            load_state_strict)
 from unscene3d_torch.ops.kernel_maps import build_sparse_graph
 from unscene3d_torch.ops.sparse_graph import graph_from_levels
 from unscene3d_torch.runtime import resolve_device
@@ -28,10 +30,11 @@ from unscene3d_torch.runtime import resolve_device
 class CSCFeatureExtractor:
     def __init__(self, variables=None, in_channels: int = 3,
                  resolution_scale: int = 2, num_labels: int = 20,
-                 device="cuda", dtype=torch.float32):
+                 device="cuda", dtype=torch.float32, state_dict=None):
         """resolution_scale: 2^k stride of the feature map to use (res_2 by
-        default). variables: a stand-alone JAX backbone's `{"params",
-        "batch_stats"}` tree, or None for random weights from seed 0."""
+        default). state_dict: the port's Res16UNet34C state (a converted
+        checkpoint); variables: a stand-alone JAX backbone's `{"params",
+        "batch_stats"}` tree; with neither, random weights from seed 0."""
         self.device = resolve_device(device)
         self.resolution_scale = resolution_scale
         self.level = int(np.log2(resolution_scale))
@@ -39,10 +42,12 @@ class CSCFeatureExtractor:
         self.dtype = dtype
         self.model = Res16UNet34C(out_channels=num_labels,
                                   in_channels=in_channels, dtype=dtype)
-        if variables is None:
-            init_random_(self.model, 0)
-        else:
+        if state_dict is not None:
+            load_state_strict(self.model, state_dict, "CSC backbone")
+        elif variables is not None:
             load_flax_backbone_variables(self.model, variables)
+        else:
+            init_random_(self.model, 0)
         self.model.to(self.device).eval()
         # seconds of the last call: the host's graph build, and the upload,
         # forward and download
