@@ -2,10 +2,10 @@
 the JAX package's on the CPU, with the JAX weights carried over by the
 bridge (`models/weights.py:load_flax_dino_variables`) or both sides loading
 one DINO-repo-format checkpoint (`load_dino_weights` /
-`load_torch_dino_weights`). Inputs come from a numpy seed; the JAX side runs
-eagerly (flax `apply`), as tests/test_encoder_fidelity.py runs it. The
-narrow model's flax variables are made once per module by the JAX
-package's own converter from a seeded DINO-format state dict (they serve
+`load_torch_dino_weights`). Inputs come from a numpy seed; the JAX side is
+jitted once per module for each stride and input size, all four facets in
+one call. The narrow model's flax variables are made once per module by the
+JAX package's own converter from a seeded DINO-format state dict (they serve
 every stride and input size: the parameters do not depend on them).
 
 Tolerances, relative to max|JAX| of the compared output:
@@ -20,6 +20,7 @@ Tolerances, relative to max|JAX| of the compared output:
     columns included: 1e-4.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ from unscene3d_torch.models.weights import (dino_state_from_flax,
 
 NARROW = dict(dim=64, depth=3, num_heads=2, facet_layer=1)
 NARROW_TOL = 1e-5
+FACETS = ["key", "query", "token", "attn_qk"]
 FULL_TOL = 1e-4
 CASES = [(4, (40, 56)), (8, (48, 48)), (8, (40, 64))]
 
@@ -64,14 +66,30 @@ def narrow_variables():
         0, **NARROW)))
 
 
-@pytest.mark.parametrize("facet", ["key", "query", "token", "attn_qk"])
+@pytest.fixture(scope="module")
+def jax_vit(narrow_variables):
+    """(stride, shape) -> (input, {facet: the JAX ViT's output}), each case
+    jitted and run once, on first use."""
+    done = {}
+
+    def run(stride, shape):
+        if (stride, shape) not in done:
+            img = np.random.RandomState(stride + shape[1]).rand(
+                2, *shape, 3).astype(np.float32)
+            model = jdino.ViTExtractor(stride=stride, **NARROW)
+            fwd = jax.jit(lambda v, x: {f: model.apply(v, x, facet=f)
+                                        for f in FACETS})
+            done[stride, shape] = img, fwd(narrow_variables, jnp.asarray(img))
+        return done[stride, shape]
+    return run
+
+
+@pytest.mark.parametrize("facet", FACETS)
 @pytest.mark.parametrize("stride,shape", CASES,
                          ids=[f"s{s}-{h}x{w}" for s, (h, w) in CASES])
-def test_vit_matches_jax(narrow_variables, facet, stride, shape):
-    img = np.random.RandomState(stride + shape[1]).rand(
-        2, *shape, 3).astype(np.float32)
-    want = jdino.ViTExtractor(stride=stride, **NARROW).apply(
-        narrow_variables, jnp.asarray(img), facet=facet)
+def test_vit_matches_jax(narrow_variables, jax_vit, facet, stride, shape):
+    img, outs = jax_vit(stride, shape)
+    want = outs[facet]
     vit = ViTExtractor(stride=stride, **NARROW)
     load_flax_dino_variables(vit, narrow_variables)
     with torch.no_grad():
@@ -89,7 +107,8 @@ def test_interpolate_pos_encoding_matches_jax(h0, w0):
     pos = np.random.RandomState(4).randn(1, 28 * 28 + 1, 16).astype(
         np.float32)
     got = interpolate_pos_encoding(torch.from_numpy(pos), h0, w0, 28)
-    want = jdino.interpolate_pos_encoding_torch(jnp.asarray(pos), h0, w0, 28)
+    want = jax.jit(jdino.interpolate_pos_encoding_torch,
+                   static_argnums=(1, 2, 3))(jnp.asarray(pos), h0, w0, 28)
     assert got.shape == (1, h0 * w0 + 1, 16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=2e-5)

@@ -262,17 +262,36 @@ def test_segment_mesh_equals_both_jax_paths_on_their_fixtures(case):
         np.testing.assert_array_equal(pairs, rp, err_msg=name)
 
 
-def test_segment_mesh_grows_its_pair_buffer_and_checks_its_input():
-    """A mesh of one face per segment needs more pairs than the first
-    buffer's 1024: the wrapper retries with the size the C++ asks for."""
+def test_segment_mesh_bounds_its_pair_buffer_and_checks_its_input(
+        monkeypatch):
+    """A mesh of one face per segment: its pairs fill a large share of the
+    wrapper's buffer of 3 pairs per face, the C++'s bound (one pair per
+    edge). The C++ reports a buffer below the pairs it found as -needed;
+    the wrapper raises on such a report."""
     mesh = make_mesh_scene(grid=80, num_objects=0, seed=1)
     v, f = mesh["vertices"], mesh["faces"]
     c = np.random.RandomState(0).rand(len(v), 3).astype(np.float32)
     seg, pairs = native.segment_mesh(v, f, c, 1e-9, 1)
     jseg, jpairs = jnative.segment_mesh(v, f, c, 1e-9, 1)
-    assert len(pairs) > 1024
+    assert len(f) < len(pairs) <= 3 * len(f)
     np.testing.assert_array_equal(seg, jseg)
     np.testing.assert_array_equal(pairs, jpairs)
+    small = np.empty((100, 2), np.int32)
+    comps = np.empty(len(v), np.int32)
+    v32, f32 = v.astype(np.float32), f.astype(np.int32)
+    n = native.load().segment_mesh(
+        native._ptr(v32), len(v), native._ptr(f32), len(f),
+        native._ptr(c), 1e-9, 1, native._ptr(comps), native._ptr(small), 100)
+    assert n == -len(pairs)
+    np.testing.assert_array_equal(comps, seg)
+
+    class Overflowing:
+        def segment_mesh(self, *args):
+            return -(3 * len(f) + 1)
+    monkeypatch.setattr(native, "load", Overflowing)
+    with pytest.raises(RuntimeError, match="overflow"):
+        native.segment_mesh(v, f, c, 1e-9, 1)
+    monkeypatch.undo()
     with pytest.raises(ValueError, match="out of range"):
         native.segment_mesh(v, f + len(v), c)
     with pytest.raises(ValueError, match="colors"):

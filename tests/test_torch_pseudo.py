@@ -615,9 +615,6 @@ def test_pipeline_unported_options_raise():
     with pytest.raises(ValueError):
         PseudoMaskPipeline(modality="depth", device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        PseudoMaskPipeline(modality="color", model_2d="LSegNet",
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         load_2d_model("LSegNet")
     with pytest.raises(KeyError, match="unknown 2d model"):
         load_2d_model("CLIPNet")

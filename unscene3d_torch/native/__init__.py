@@ -251,17 +251,17 @@ def segment_mesh(vertices: np.ndarray, faces: np.ndarray, colors: np.ndarray,
                          f"colors {colors.shape}")
     if faces.size and (faces.min() < 0 or faces.max() >= len(vertices)):
         raise ValueError("a face indexes a vertex out of range")
-    lib = load()
     comps = np.empty(len(vertices), np.int32)
-    cap = max(3 * len(faces), 1024)
-    while True:
-        pairs = np.empty((cap, 2), np.int32)
-        n = lib.segment_mesh(_ptr(vertices), len(vertices), _ptr(faces),
-                             len(faces), _ptr(colors), float(kthr),
-                             int(seg_min_verts), _ptr(comps), _ptr(pairs), cap)
-        if n >= 0:
-            return comps, pairs[:n].copy()
-        cap = -n    # the pair buffer was too small: n = -needed
+    # the C++ writes at most one pair per edge, three edges per face
+    cap = max(3 * len(faces), 1)
+    pairs = np.empty((cap, 2), np.int32)
+    n = load().segment_mesh(_ptr(vertices), len(vertices), _ptr(faces),
+                            len(faces), _ptr(colors), float(kthr),
+                            int(seg_min_verts), _ptr(comps), _ptr(pairs), cap)
+    if n < 0:
+        raise RuntimeError(f"segment_mesh: {-n} pairs overflow the bound of "
+                           f"{cap} (3 per face)")
+    return comps, pairs[:n].copy()
 
 
 def segment_mesh_numpy(vertices, faces, colors, kthr: float = 0.005,

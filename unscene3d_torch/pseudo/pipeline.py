@@ -11,10 +11,10 @@ lockstep, so the eigensolves batch on the device.
 
 The 2D encoding runs frame by frame on the device: the ViT's features stay
 there, each frame is projected there (`projection.project_2d_features`) and
-folded into the running per-voxel features (the reference's pairwise mean
-by default), so no frame's features reach the host. Weights come from the
-checkpoints (`csc_weights`, `dino_weights`), from JAX variables
-(`csc_variables`, `dino_variables`; the tests), or are seeded random ones.
+folded into the running per-voxel features by the reference's pairwise
+mean, so no frame's features reach the host. Weights come from the
+checkpoints (`csc_weights`, `dino_weights`), for the CSC also from JAX
+variables (`csc_variables`; the tests), or are seeded random ones.
 `save_visualizations` raises NotImplementedError (eval/visualize.py is not
 ported). `timings` holds the seconds the last `process_scenes` call spent
 by stage (the CSC extractor's host graph build and its forward apart, the
@@ -30,10 +30,8 @@ import numpy as np
 import torch
 from scipy.spatial import KDTree
 
-from unscene3d_torch.models.encoders_2d import load_2d_model
-from unscene3d_torch.models.encoders_2d.dino import load_dino_weights
+from unscene3d_torch.models.encoders_2d.dino import DinoNet, load_dino_weights
 from unscene3d_torch.models.torch_convert import load_csc_backbone
-from unscene3d_torch.models.weights import dino_state_from_flax
 from unscene3d_torch.ops.segment_ops import segment_mean
 from unscene3d_torch.pseudo.csc import CSCFeatureExtractor
 from unscene3d_torch.pseudo.features import aggregate_features
@@ -54,22 +52,13 @@ class PseudoMaskPipeline:
         csc_weights: str | None = None,
         dino_weights: str | None = None,
         csc_variables=None,                # a JAX backbone's variables tree
-        dino_variables=None,               # a JAX ViTExtractor's variables
         resolution_scale: int = 2,
         aggregation_mode: str = "mean",
         voxel_size: float = VOXEL_SIZE,
-        image_size: tuple = (192, 256),
-        reference_average: bool = True,
-        model_2d: str = "DinoNet",
         device="cuda",
         dtype=torch.float32,
     ):
-        """dtype: the CSC backbone's compute dtype (the ViT runs in f32).
-        model_2d: the 2D encoder's name in `encoders_2d.load_2d_model`
-        (the config's `image_data.model`; only DinoNet is ported).
-        image_size: the frame size that the JAX package sizes a random
-        ViT's initialisation by; the port's random ViT needs none, and
-        features always follow each frame's own size."""
+        """dtype: the CSC backbone's compute dtype (the ViT runs in f32)."""
         if modality not in ("geom", "color", "both"):
             raise ValueError(f"unknown modality {modality!r}")
         if method not in ("ncut", "query"):
@@ -80,8 +69,6 @@ class PseudoMaskPipeline:
         self.cfg = ncut_cfg or NCutConfig()
         self.aggregation_mode = aggregation_mode
         self.voxel_size = voxel_size
-        self.image_size = tuple(image_size)
-        self.reference_average = reference_average
         self.csc = None
         if modality in ("geom", "both"):
             self.csc = CSCFeatureExtractor(
@@ -91,13 +78,10 @@ class PseudoMaskPipeline:
                             else None))
         self.dino = None
         if modality in ("color", "both"):
-            state = None
-            if dino_weights:
-                state = load_dino_weights(dino_weights)
-            elif dino_variables is not None:
-                state = dino_state_from_flax(dino_variables)
-            self.dino = load_2d_model(model_2d)(state_dict=state,
-                                                device=self.device)
+            self.dino = DinoNet(
+                state_dict=(load_dino_weights(dino_weights) if dino_weights
+                            else None),
+                device=self.device)
         self.timings: dict[str, float] = {}
         # the share of each scene's voxels that a frame hit, last encoded
         self.hit_share: dict[str, float] = {}
@@ -114,9 +98,8 @@ class PseudoMaskPipeline:
     def _encode_2d(self, scene: dict) -> np.ndarray:
         """(N, 384) per-voxel DINO features of one scene's frames: each
         frame through the ViT and projected on the device, folded into the
-        running features (the reference's pairwise mean on the voxels a
-        frame hits, or with `reference_average=False` the mean over the
-        frames that hit)."""
+        running features by the reference's pairwise mean on the voxels a
+        frame hits."""
         images, K = scene["images"], scene["intrinsics"]
         if images is None or len(images) == 0:
             raise ValueError(f"{scene['scene_name']}: no frames to encode")
@@ -131,7 +114,7 @@ class PseudoMaskPipeline:
             np.asarray(scene["poses"], np.float32)).to(dev)
         K = torch.from_numpy(np.asarray(K, np.float32)).to(dev)
         acc = torch.zeros(n, self.dino.feature_dim, device=dev)
-        cnt_total = torch.zeros(n, dtype=torch.int32, device=dev)
+        seen = torch.zeros(n, dtype=torch.bool, device=dev)
         t0 = time.perf_counter()
         for i in range(len(images)):
             feats = self.dino(images[i][None])           # (1, h, w, 384)
@@ -139,16 +122,11 @@ class PseudoMaskPipeline:
             out, cnt = project_2d_features(feats, world, valid,
                                            poses[i][None], K, h, w)
             hit = cnt > 0
-            cnt_total += hit.to(torch.int32)
-            if self.reference_average:
-                acc = torch.where(hit[:, None], (acc + out) / 2.0, acc)
-            else:
-                acc = torch.where(hit[:, None], acc + out, acc)
+            seen |= hit
+            acc = torch.where(hit[:, None], (acc + out) / 2.0, acc)
             t0 = self._clock("project", t0)
-        if not self.reference_average:
-            acc /= cnt_total.clamp_min(1)[:, None].to(torch.float32)
         self.hit_share[scene["scene_name"]] = (
-            (cnt_total > 0).float().mean().item())
+            seen.float().mean().item())
         return acc.cpu().numpy()
 
     def _query_masks(self, inp: dict) -> np.ndarray:

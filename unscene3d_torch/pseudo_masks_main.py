@@ -69,7 +69,6 @@ def main(argv=None):
         dino_weights=cfg.image_data.model_checkpoint,
         resolution_scale=int(cfg.freemask.resolution_scale),
         aggregation_mode=cfg.freemask.aggregation_mode,
-        model_2d=cfg.image_data.model,
         device=cfg.misc.get("device") or "cuda",
     )
 
