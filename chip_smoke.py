@@ -27,7 +27,14 @@ ViT-S/8 and CSC features from seeded random checkpoints on 2 bench scenes
 with 75 frames each, timed by stage, and `python -m
 unscene3d_torch.pseudo_masks_main` on a ScanNet-layout directory written
 here (meshes, JPEG frames), asserting the segmentator's calls and the
-CSC forward's launches.
+CSC forward's launches. Last, the training options: the noise-robust
+tri-plane loss on the train batch (kernel 3 at the tri-plane shapes, f32
+and bf16 steps beside the plain ones, the loss's own device time, steps
+bitwise repeatable with it and with dropout, card-vs-CPU parity of the
+loss), then the loss, dropout, pre-norm, the Mix3D merge collator and the
+eval collate pool through the entry point's functions, and one bench
+forward per decoder mode group (level embeddings + np features + max
+pooling + max_sample_size, learned queries, random queries).
 
     python3 chip_smoke.py
 
@@ -155,6 +162,41 @@ SELF_TRAIN_EXPORT = [
     "general.save_for_freemask=true", "general.filter_out_instances=true",
     "general.eval_on_segments=true", "general.num_targets=3",
     "data/datasets=freemask"]
+# the noise-robust tri-plane loss (phase_train_noise_robust): kernel 3 runs
+# the mask-feature pool, the target and the prediction projections (all
+# three planes in one call each), the per-scene loss sums, and in the
+# backward the segment-to-voxel spread of the prediction's gradient
+PER_TRAIN_STEP_NR = dict(PER_TRAIN_STEP, segment_sum=5)
+NR_STEPS = 3             # timed noise-robust steps per dtype, after a warm-up
+# loss_noise_robust on the parity scene, relative: the card's f32 loss
+# against the same math in f64 (NR_EXACT_TOL), and the card's against the
+# CPU twin's (NR_LOSS_TOL). The BCE's log(1 - p) scales one ulp of p by
+# 1 / (1 - p), and 1 - p gets small there, so an f32 evaluation may sit
+# far from the f64 value; the CPU twin's sits farther than the card's
+# (_noise_robust_parity prints both). The gradient to the segment logits,
+# relative to its max, is held to f32 summation order
+NR_EXACT_TOL, NR_LOSS_TOL, NR_GRAD_TOL = 1e-5, 1e-4, 1e-5
+# phase_train_options: the training options of the round, over the overrides
+# of scripts/unsupervised/train_unscene3d.sh
+TRAIN_OPTIONS = ["loss.weight_noise_robust=1.0", "model.dropout=0.1",
+                 "model.pre_norm=true",
+                 "data/collation_functions=voxelize_collate_merge",
+                 "data.prefetch_processes=2"]
+# the decoder's other query and pooling modes, one eval forward each on the
+# bench scene at full width
+MODE_GROUPS = {
+    "level_embed+np_features+max_scatter+max_sample_size": dict(
+        use_level_embed=True, use_np_features=True, scatter_type="max",
+        max_sample_size=True),
+    "learned_queries": dict(non_parametric_queries=False),
+    "random_query_both+random_normal": dict(
+        non_parametric_queries=False, random_query_both=True,
+        random_normal=True),
+}
+# measured plain steps and round numbers, filled by the phases that take
+# them: name -> (warm ms, peak bytes) or (scenes/s through fit, eval s a
+# scene)
+STEP_STATS = {}
 # the pseudo masks as the paper makes them (phase_pseudo_both): DINO
 # ViT-S/8 at stride 4 on ScanNet's 480 x 640 frames x downsample_ratio 0.4
 # (conf/pseudo/default.yaml) and CSC res_2 features, 2 scenes of the bench
@@ -881,6 +923,7 @@ def phase_train(dev, batch):
         f"{1e3 * TRAIN_BATCH / warm:.2f} scenes/s; peak device memory "
         f"{peak / 2**30:.2f} GiB; {len(before) - len(unchanged)} of "
         f"{len(before)} params changed (unchanged: {unchanged})")
+    STEP_STATS["bf16"] = (warm, peak)
     return launches, trainer, gen
 
 
@@ -1417,6 +1460,7 @@ def phase_train_f32(dev, batch):
         f"scenes/s; peak device memory {peak / 2**30:.2f} GiB")
     phase_train_repeat(dev, trainer, batch, "f32")
     _trace_step(trainer, batch, gen, "f32")
+    STEP_STATS["f32"] = (warm, peak)
     log(f"phase train_f32: {time.perf_counter() - t_phase:.1f}s")
     return launches, warm
 
@@ -2384,7 +2428,358 @@ def phase_self_train(dev, card, f32_step_ms):
         f"f32, phase_train_f32: {1e3 * TRAIN_BATCH / f32_step_ms:.2f} "
         f"scenes/s); eval {eval1['seconds'] / eval1['scenes']:.3f} s per "
         f"scene; on {card}")
+    STEP_STATS["self_train"] = (scenes_s,
+                                eval1["seconds"] / eval1["scenes"])
     log(f"phase self_train: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def _triplane_planes(tri, valid):
+    """Pixels of each plane and the voxels a pixel holds (median, max), from
+    the host maps: each plane's pixels are one range of ids."""
+    pid, counts = tri.pixel_id.numpy(), tri.counts.numpy()
+    out, lo = [], 0
+    for d, name in enumerate(("XY", "XZ", "YZ")):
+        hi = int(pid[d][valid].max()) + 1
+        c = counts[lo:hi]
+        out.append(f"{name} {hi - lo} (median {int(np.median(c))}, max "
+                   f"{int(c.max())} voxels a pixel)")
+        lo = hi
+    return out
+
+
+def _noise_robust_ms(trainer, batch, gen, reps=2):
+    """Device time of the tri-plane loss alone (CUDA events): its forward
+    (target and prediction projections, BCE, scene sums) and its backward
+    to the segment logits, on one forward's outputs and matching; the last
+    of `reps` runs. Also its kernel-3 launches per forward + backward."""
+    model, crit = trainer.model, trainer.criterion
+    with torch.no_grad():
+        out = model(batch, generator=gen)
+        matched = crit.matcher(out["pred_logits"], out["pred_masks_seg"],
+                               batch.target, batch.seg_valid)
+    seg = out["pred_masks_seg"].detach().requires_grad_()
+    del out
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    for _ in range(reps):
+        cnt = reset_counters()
+        ev[0].record()
+        loss = crit._loss_noise_robust(seg, batch.target, matched, batch)
+        ev[1].record()
+        torch.autograd.grad(loss.sum(), seg)
+        ev[2].record()
+        ev[2].synchronize()
+    return (ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+            cnt["segment_sum"].launches)
+
+
+def _triplane_loss_f64(seg, batch, matched):
+    """loss_noise_robust of every set in f64 on the CPU, the same math as
+    the criterion's (plain index_add_ sums): the reference that shows how
+    far the f32 loss sits from exact on this input."""
+    L, B, S, Q = seg.shape
+    T = matched.shape[-1]
+    tri, valid = batch.triplane, batch.valid
+    mq = torch.clamp_min(matched, 0)[:, :, None, :].expand(L, B, S, T)
+    sig = torch.sigmoid(torch.take_along_dim(seg.double(), mq, dim=3))
+    seg_flat = batch.batch_idx.long() * S + batch.point2segment.long()
+    pred = (sig.permute(1, 2, 0, 3).reshape(B * S, L * T)[seg_flat]
+            * valid[:, None].double())
+
+    def project(x):
+        out = torch.zeros(tri.num_pixels + 1, x.shape[1], dtype=torch.float64)
+        for d in range(3):
+            ids = torch.where(valid, tri.pixel_id[d].long(), tri.num_pixels)
+            out.index_add_(0, ids, x)
+        return out[:-1]
+
+    cnt = tri.counts.double()
+    p = torch.clamp(project(pred).reshape(-1, L, T)
+                    / (cnt + 1e-9)[:, None, None], 1e-7, 1 - 1e-7)
+    t = (project(batch.target.vox_masks.double())
+         / (cnt + 1e-9)[:, None])[:, None, :]
+    t_valid = batch.target.valid[None] & (matched >= 0)
+    bce = -(t * torch.log(p) + (1 - t) * torch.log(1 - p))
+    bce = (bce * t_valid.transpose(0, 1).double()[tri.pix_scene.long()]
+           * ((cnt > 0) & tri.pix_valid)[:, None, None].double())
+    ids = torch.where(tri.pix_valid, tri.pix_scene.long(), B)
+    scene = torch.zeros(B + 1, L, dtype=torch.float64).index_add_(
+        0, ids, bce.sum(-1))[:B]
+    shape = torch.clamp_min(t_valid.sum(-1).double()
+                            * tri.npix_scene.double()[None], 1.0)
+    return (scene.T / shape).sum(-1), float((1 - p).min())
+
+
+def _noise_robust_parity(dev):
+    """loss_noise_robust of 13 sets and its gradient to the segment logits,
+    card (kernel 3) vs CPU (twins), on the parity scene with random logits
+    and one matching."""
+    from unscene3d_torch.data.collate import FreeMaskCollator
+    from unscene3d_torch.data.synthetic import make_scene
+    from unscene3d_torch.losses.criterion import SetCriterion
+    from unscene3d_torch.losses.matcher import HungarianMatcher
+
+    scene = make_scene(num_points=30_000, num_objects=6, extent=4.0, seed=7)
+    batch, meta = FreeMaskCollator(voxel_size=VOXEL, fps_queries=100,
+                                   build_triplane=True)([scene])
+    S = batch.num_segments_padded
+    rng = np.random.RandomState(3)
+    seg = torch.from_numpy((rng.randn(13, 1, S, 100) * 3).astype(np.float32))
+    logits = torch.from_numpy(rng.randn(13, 1, 100, 3).astype(np.float32))
+    crit = SetCriterion(HungarianMatcher(), weight_noise_robust=1.0)
+    matched = crit.matcher(logits, seg, batch.target, batch.seg_valid)
+    got = {}
+    for name, d in (("cpu", "cpu"), ("cuda", dev)):
+        b = batch.to(d)
+        x = seg.to(d).requires_grad_()
+        loss = crit._loss_noise_robust(x, b.target, matched.to(d), b)
+        (g,) = torch.autograd.grad(loss.sum(), x)
+        got[name] = (loss.detach().cpu(), g.cpu())
+    (lc, gc), (lg, gg) = got["cpu"], got["cuda"]
+    with torch.no_grad():
+        l64, gap = _triplane_loss_f64(seg, batch, matched)
+    exact = {k: ((v.double() - l64).abs() / l64).max().item()
+             for k, v in (("card", lg), ("cpu", lc))}
+    loss_err = ((lg - lc).abs() / lc.abs()).max().item()
+    grad_err = ((gg - gc).abs().max() / gc.abs().max()).item()
+    log(f"  noise-robust parity ({meta.num_voxels[0]} voxels, "
+        f"{int(b.triplane.pix_valid.sum())} pixels, 13 sets): the f32 loss "
+        f"against its f64 value (CPU): card {exact['card']:.2e} (tol "
+        f"{NR_EXACT_TOL:g}), CPU {exact['cpu']:.2e}, min 1 - p {gap:.2e}; "
+        f"card vs CPU: loss rel err {loss_err:.2e} (tol {NR_LOSS_TOL:g}), "
+        f"gradient {grad_err:.2e} of its max (tol {NR_GRAD_TOL:g})")
+    if not (torch.isfinite(lg).all() and (lg > 0).all()):
+        raise AssertionError(f"noise-robust parity: loss {lg}")
+    if not exact["card"] <= NR_EXACT_TOL:
+        raise AssertionError(f"noise-robust parity: card loss {exact['card']} "
+                             f"from its f64 value")
+    if not (loss_err <= NR_LOSS_TOL and grad_err <= NR_GRAD_TOL):
+        raise AssertionError(f"noise-robust parity: loss {loss_err}, "
+                             f"gradient {grad_err}")
+
+
+def phase_train_noise_robust(dev, card, host_batch):
+    """The train batch with the noise-robust tri-plane loss at weight 1.0:
+    the host maps and kernel 3's tables, kernel 3 at the tri-plane shapes
+    (targets C = T, predictions C = 13 T) against its twin and index_add_,
+    build_trainer(weight_noise_robust=1.0) in f32 and bf16 (one warm-up and
+    NR_STEPS timed steps each, kernel 3's launches per step, peak memory
+    beside the plain step of phase_train / phase_train_f32, the loss's own
+    device time), two f32 steps from one state bitwise equal with the loss
+    and also with dropout 0.1, and card-vs-CPU parity of the loss and its
+    gradient."""
+    import dataclasses
+
+    from unscene3d_torch.ops import triplane as tri_ops
+    from unscene3d_torch.train.loop import build_trainer
+
+    t_phase = time.perf_counter()
+    lvl0 = host_batch.graph.levels[0]
+    valid = lvl0.valid.numpy()
+    t0 = time.perf_counter()
+    tri = tri_ops.build_triplane_maps(lvl0.coords.numpy(), valid,
+                                      host_batch.batch_size)
+    t_maps = time.perf_counter() - t0
+    n_pix = int(tri.pix_valid.sum())
+    log(f"noise-robust train batch: {int(valid.sum())} valid voxels of "
+        f"{lvl0.num_padded} rows, T = {host_batch.target.labels.shape[1]}, "
+        f"{n_pix} occupied pixels (padded {tri.num_pixels}): "
+        f"{', '.join(_triplane_planes(tri, valid))}; order of "
+        f"{tri.order.numel()} entries; host maps + kernel-3 tables "
+        f"{t_maps:.2f}s")
+    batch = dataclasses.replace(host_batch, triplane=tri).to(dev)
+    tri_d, T = batch.triplane, batch.target.labels.shape[1]
+    n0, trash, m = lvl0.num_padded, tri_d.num_pixels, tri_d.order.numel()
+    n_valid = int(valid.sum())
+    ids3 = torch.cat([torch.where(batch.valid, tri_d.pixel_id[d].long(),
+                                  trash) for d in range(3)])
+    g = torch.Generator().manual_seed(2)
+    res = {}
+    log("kernel 3 at the tri-plane shapes vs its twin (index_add_ per "
+        "plane) and one index_add_ over the three planes (float atomics)")
+    for c in (T, 13 * T):
+        x = torch.rand(n0, c, generator=g).to(dev)
+        x3 = x.repeat(3, 1)
+        dump = torch.zeros(trash + 1, c, device=dev)
+        res[c] = _compare(
+            f"segment_sum triplane ({n0},{c})->({trash},{c})", torch.float32,
+            lambda: tri_ops.project(x, tri_d, batch.valid),
+            lambda: tri_ops.project_plain(x, tri_d, batch.valid),
+            # bytes: each valid row once (the three planes may share one
+            # read of it), the order, the pieces and the occupied pixels'
+            # rows of the output; one add per entry and channel
+            work=(nbytes(tri_d.order, tri_d.pieces)
+                  + (n_valid + n_pix) * c * 4, m * c, torch.float32),
+            library=lambda: dump.zero_().index_add_(0, ids3, x3))
+        del x, x3, dump
+    launches = {k: 0 for k in KERNELS}
+    for dtype, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        trainer = build_trainer(dtype, seed=0, device=dev,
+                                weight_noise_robust=1.0)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cnt = reset_counters()
+        times = []
+        for step in range(1 + NR_STEPS):
+            t0 = time.perf_counter()
+            losses = trainer.train_step(batch, gen)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            nr = losses["loss_noise_robust"]
+            for key in ("loss_ce", "loss_mask", "loss_dice",
+                        "loss_noise_robust", "total"):
+                if not torch.isfinite(losses[key]).all():
+                    raise AssertionError(f"noise-robust {label} step {step}: "
+                                         f"{key} not finite")
+            if not (nr > 0).all():
+                raise AssertionError(f"noise-robust {label} step {step}: "
+                                     f"loss_noise_robust {nr.tolist()}")
+            log(f"  noise-robust {label} step {step}: {times[-1]:.1f}ms "
+                f"total={losses['total'].item():.4f} loss_noise_robust "
+                f"sets {nr.min().item():.4f}-{nr.max().item():.4f}")
+        got = {k: fn.launches for k, fn in cnt.items()}
+        peak = torch.cuda.max_memory_allocated()
+        n = 1 + NR_STEPS
+        for k, per in PER_TRAIN_STEP_NR.items():
+            if got[k] != per * n:
+                raise AssertionError(f"noise-robust {label} {k}: {got[k]} "
+                                     f"launches, expected {per} x {n}")
+            launches[k] += got[k]
+        warm = statistics.median(times[1:])
+        plain_ms, plain_peak = STEP_STATS[label]
+        fwd_ms, bwd_ms, k3 = _noise_robust_ms(trainer, batch, gen)
+        log(f"train {label} with the noise-robust loss, batch {TRAIN_BATCH}: "
+            f"first step {times[0]:.1f}ms, warm median of {NR_STEPS} "
+            f"{warm:.1f}ms (min {min(times[1:]):.1f}, max "
+            f"{max(times[1:]):.1f}) beside the plain step's {plain_ms:.1f}ms "
+            f"in this run (+{warm - plain_ms:.1f}ms); peak device memory "
+            f"{peak / 2**30:.2f} GiB beside {plain_peak / 2**30:.2f} GiB; "
+            f"the loss alone (CUDA events): forward {fwd_ms:.2f}ms, "
+            f"backward {bwd_ms:.2f}ms, {k3} kernel-3 launches; kernel 3 "
+            f"{PER_TRAIN_STEP_NR['segment_sum']} launches a step; n_pix "
+            f"{n_pix}; on {card}")
+        STEP_STATS[f"nr_{label}"] = (warm, peak, fwd_ms, bwd_ms)
+        if label == "f32":
+            phase_train_repeat(dev, trainer, batch, "f32 noise-robust")
+        del trainer
+        torch.cuda.empty_cache()
+    trainer = build_trainer(torch.float32, seed=0, device=dev,
+                            weight_noise_robust=1.0, dropout=0.1)
+    phase_train_repeat(dev, trainer, batch, "f32 noise-robust, dropout 0.1")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    _noise_robust_parity(dev)
+    log(f"phase train_noise_robust: {time.perf_counter() - t_phase:.1f}s")
+    return launches, res
+
+
+def phase_train_options(dev, card, bench_batch):
+    """The training options through the entry point's functions
+    (get_parameters + build_experiment + fit): the overrides of
+    scripts/unsupervised/train_unscene3d.sh with TRAIN_OPTIONS (the
+    noise-robust loss, decoder dropout and pre-norm, the Mix3D merge
+    collator, eval collates in 2 processes) on phase_self_train's 8 scenes,
+    one epoch of one step and one validation; then one eval forward of the
+    bench scene per decoder mode group (bf16, full width), finite and of the
+    expected shapes. Launch counts read around both."""
+    import tempfile
+
+    from unscene3d_torch.inference import build_mask3d
+    from unscene3d_torch.main_instance_segmentation import (build_experiment,
+                                                            get_parameters)
+
+    t_phase = time.perf_counter()
+    cnt = reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_self_train_data(f"{tmp}/data")
+        over = [o for o in SELF_TRAIN_ROUND
+                if not o.startswith("data/collation_functions=")]
+        cfg = get_parameters(over + TRAIN_OPTIONS + [
+            f"general.data_dir={tmp}/data",
+            f"data.datasets.validation_dataset.data_dir={tmp}/data",
+            f"data.datasets.test_dataset.data_dir={tmp}/data",
+            f"general.save_dir={tmp}/run", "trainer.max_epochs=1",
+            "trainer.check_val_every_n_epoch=1"])
+        t0 = time.perf_counter()
+        exp = build_experiment(cfg)
+        t_build = time.perf_counter() - t0
+        try:
+            layer = exp.model.cross_attention[0][0]
+            if not (type(exp.collator).__name__ == "MergeCollator"
+                    and exp.collator.build_triplane
+                    and exp.criterion.weight_noise_robust == 1.0
+                    and exp.prefetch_processes == 2 and layer.pre_norm
+                    and layer.dropout == 0.1 and exp.device == dev):
+                raise AssertionError("train options: the overrides did not "
+                                     "reach the experiment")
+            t0 = time.perf_counter()
+            trainer = exp.fit(seed=int(cfg.general.seed),
+                              resume=bool(cfg.general.resume),
+                              checkpoint=cfg.general.checkpoint)
+            t_fit = time.perf_counter() - t0
+            pooled = exp._collate_pool is not None
+        finally:
+            exp.close()
+        fit, ev, res = exp.fit_stats, exp.eval_stats, exp.last_results
+        n_steps = trainer.step
+        _self_train_report("train options", exp, t_build, t_fit)
+        del trainer, exp
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    n_evals = ev["scenes"]
+    log(f"train options path: {n_steps} train steps, {n_evals} evaluated "
+        f"scenes (collates in a pool of 2 processes: {pooled}), launches "
+        f"{launches}")
+    for k in PER_TRAIN_STEP_NR:
+        want = n_steps * PER_TRAIN_STEP_NR[k] + n_evals * PER_FORWARD[k]
+        if launches[k] != want:
+            raise AssertionError(f"train options {k}: {launches[k]} launches,"
+                                 f" expected {n_steps} x "
+                                 f"{PER_TRAIN_STEP_NR[k]} + {n_evals} x "
+                                 f"{PER_FORWARD[k]}")
+    aps = [res["all_ap"], res["all_ap_50%"], res["all_ap_25%"]]
+    if not (pooled and all(np.isfinite(aps))):
+        raise AssertionError(f"train options: pool {pooled}, AP {aps}")
+    scenes_s = TRAIN_BATCH * n_steps / sum(fit["epoch_s"])
+    st_scenes_s, st_eval_s = STEP_STATS["self_train"]
+    log(f"train options through fit: {scenes_s:.2f} scenes/s (Mix3D merges "
+        f"of 2 scenes, noise-robust loss, dropout 0.1, pre-norm; "
+        f"phase_self_train's round 1: {st_scenes_s:.2f} scenes/s); eval "
+        f"{ev['seconds'] / n_evals:.3f} s per scene with the collate pool "
+        f"(phase_self_train's round 1, thread collates: {st_eval_s:.3f} s); "
+        f"AP / AP50 / AP25 {aps[0]:.4f} / {aps[1]:.4f} / {aps[2]:.4f} "
+        f"(finite; at random weights their values mean nothing); on {card}")
+    b = bench_batch.to(dev)
+    S, n0 = b.num_segments_padded, b.graph.levels[0].num_padded
+    for name, kw in MODE_GROUPS.items():
+        model = build_mask3d(torch.bfloat16, seed=0, **kw).to(dev)
+        cnt = reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(b, generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = {k: fn.launches for k, fn in cnt.items()}
+        want = dict(PER_FORWARD, segment_sum=0) \
+            if kw.get("scatter_type") == "max" else PER_FORWARD
+        shapes = {"pred_logits": (13, 1, 100, 3),
+                  "pred_masks_seg": (13, 1, S, 100),
+                  "pred_masks_vox": (1, n0, 100)}
+        for key, shape in shapes.items():
+            if tuple(out[key].shape) != shape or \
+                    not torch.isfinite(out[key]).all():
+                raise AssertionError(f"mode group {name}: {key} "
+                                     f"{tuple(out[key].shape)} (expected "
+                                     f"{shape}) or not finite")
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"mode group {name}: launches {got}")
+        for k in launches:
+            launches[k] += got[k]
+        log(f"  mode group {name}: bf16 eval forward of the bench scene "
+            f"{ms:.1f}ms (first call), outputs finite, shapes "
+            f"{[tuple(out[k].shape) for k in shapes]}")
+        del model, out
+    log(f"phase train_options: {time.perf_counter() - t_phase:.1f}s")
     return launches
 
 
@@ -2452,7 +2847,7 @@ def main() -> int:
         res.setdefault(name, {}).update(cases)
     res["csr_conv3"], dw_vs_csr = phase_csr_kernels(dev, batches[CSR_LEVELS],
                                                     tbatch_csr)
-    tbatch = tbatch.to(dev)
+    tbatch_host, tbatch = tbatch, tbatch.to(dev)
     launches["train"], trainer, gen = phase_train(dev, tbatch)
     phase_train_repeat(dev, trainer, tbatch)
     phase_train_profile(trainer, tbatch, gen)
@@ -2467,6 +2862,11 @@ def main() -> int:
     phase_train_parity(dev)
     torch.cuda.empty_cache()
     launches["self_train"] = phase_self_train(dev, card, f32_step_ms)
+    torch.cuda.empty_cache()
+    launches["train_noise_robust"], nr_res = phase_train_noise_robust(
+        dev, card, tbatch_host)
+    del tbatch_host
+    launches["train_options"] = phase_train_options(dev, card, batches[()])
 
     main_case = {"conv3_fwd": (0, 128, 96, torch.bfloat16),
                  "k_apply_gemm": ("up", torch.bfloat16),
@@ -2491,6 +2891,11 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in res[name].values()),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
             bound_by=m["bound_by"], library_ms=m["library_ms"]))
+        if name == "segment_sum":   # the tri-plane projection's shapes
+            for c, r in nr_res.items():
+                kernels[-1].update({f"triplane_c{c}_{k}": r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms",
+                    "max_abs_err")})
         if name in ("csr_conv3", "win_decompose"):   # beside kernel 1
             kernels[-1].update(kernel1_ms=m["other_ms"])
         if name == "csr_conv3":

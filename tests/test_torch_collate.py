@@ -253,6 +253,31 @@ def test_port_imports_no_jax():
         "exp = build_experiment(cfg)\n"
         "res = exp.evaluate(exp.validation_dataset, max_scenes=1)\n"
         "assert {'all_ap', 'all_ap_50%', 'all_ap_25%'} <= set(res)\n"
+        "from unscene3d_torch.data.collate import MergeCollator\n"
+        "t = build_trainer(torch.float32, backbone='Res16UNet14A',"
+        " hidden_dim=16, num_queries=4, num_heads=2, dim_feedforward=32,"
+        " num_decoders=1, sample_sizes=(16, 32, 64, 128, 256),"
+        " device='cpu', weight_noise_robust=1.0, dropout=0.1,"
+        " pre_norm=True, use_level_embed=True, scatter_type='max')\n"
+        "b, _ = MergeCollator(voxel_size=0.15, fps_queries=4,"
+        " build_triplane=True)([scene, make_scene(800, seed=2)])\n"
+        "nr = t.train_step(b, torch.Generator().manual_seed(0))"
+        "['loss_noise_robust']\n"
+        "assert torch.isfinite(nr).all() and (nr > 0).all()\n"
+        "cfg = get_parameters(['data/datasets=synthetic',"
+        " 'data.batch_size=2', 'data.voxel_size=0.15',"
+        " 'model.hidden_dim=16', 'model.num_queries=4', 'model.num_heads=2',"
+        " 'model.dim_feedforward=32', 'model.num_decoders=1',"
+        " 'model.non_parametric_queries=false',"
+        " 'model.backbone._target_=unscene3d_tpu.models.backbone."
+        "Res16UNet14A', 'data.datasets.validation_dataset.num_points=1500',"
+        " 'data/collation_functions=voxelize_collate_merge',"
+        " 'data.prefetch_processes=1', 'loss.weight_noise_robust=1.0',"
+        " 'general.device=cpu', 'general.save_dir=' + tempfile.mkdtemp()])\n"
+        "exp = build_experiment(cfg)\n"
+        "res = exp.evaluate(exp.validation_dataset, max_scenes=1)\n"
+        "exp.close()\n"
+        "assert {'all_ap', 'all_ap_50%', 'all_ap_25%'} <= set(res)\n"
         "from unscene3d_torch import native, pseudo_masks_main\n"
         "from unscene3d_torch.data import ply, scannet_pseudo\n"
         "from unscene3d_torch.data.synthetic import make_mesh_scene\n"

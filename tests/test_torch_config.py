@@ -4,8 +4,9 @@ The reference scripts' overrides (scripts/unsupervised/train_unscene3d.sh,
 scripts/mask3d_DINO_CSC_self_train.sh) compose to equal trees in both
 loaders; `instantiate` builds only the port's objects, maps dtype strings
 to torch dtypes and raises ImportError for a target the port lacks; the
-config keys the port does not implement raise NotImplementedError; the
-entry point runs on the GPU unless `general.device=cpu`.
+config keys the port does not implement raise NotImplementedError, and
+each training option it runs builds and takes one CPU step through the
+entry point; the entry point runs on the GPU unless `general.device=cpu`.
 """
 
 import os
@@ -128,12 +129,12 @@ def test_unported_target_raises_without_importing_jax():
 
 
 @pytest.mark.parametrize("override", [
-    "model.pre_norm=true", "model.random_queries=true",
-    "model.max_sample_size=true", "model.dropout=0.1",
-    "matcher.num_points=100", "loss.weight_noise_robust=1.0",
-    "data.prefetch_processes=2", "general.save_visualizations=true",
-    "general.backbone_checkpoint=x.ckpt"])
+    "matcher.num_points=100", "general.save_visualizations=true",
+    "general.backbone_checkpoint=x.ckpt", "model.train_on_segments=false"])
 def test_unported_config_values_raise(override, data_dir, tmp_path):
+    """Keys the JAX package never reads (matcher.num_points,
+    general.backbone_checkpoint, model.train_on_segments) and a later
+    slice's (general.save_visualizations) raise."""
     cfg = get_parameters(TINY + [f"general.data_dir={data_dir}",
                                  f"general.save_dir={tmp_path}/run",
                                  override])
@@ -150,9 +151,15 @@ def test_config_keys_reach_the_modules():
     bns = [m for m in model.modules() if isinstance(m, SparseBatchNorm)]
     assert bns and all(bn.momentum == 0.1 for bn in bns)
     assert model.backbone.remat is False
-    with pytest.raises(NotImplementedError, match="tri-plane"):
-        instantiate(cfg.data.collation_functions.train_collation,
-                    build_triplane=True)
+    from unscene3d_torch.data.synthetic import make_scene
+
+    collator = instantiate(cfg.data.collation_functions.train_collation,
+                           build_triplane=True, fps_queries=8)
+    batch, _ = collator([make_scene(1500, 4, seed=3)])
+    tri = batch.triplane
+    n_valid = int(batch.valid.sum())
+    assert tri is not None and tri.order.shape == (3 * n_valid,)
+    assert int(tri.counts.sum()) == 3 * n_valid
 
 
 def test_remat_false_keeps_activations(monkeypatch):
@@ -190,3 +197,37 @@ def test_entry_point_needs_the_card_unless_asked_for_the_cpu(data_dir,
                                  f"general.save_dir={tmp_path}/run"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_experiment(cfg)
+
+
+@pytest.mark.parametrize("overrides", [
+    ["loss.weight_noise_robust=1.0"], ["model.dropout=0.1"],
+    ["model.pre_norm=true"], ["model.max_sample_size=true"],
+    ["model.use_level_embed=true"], ["model.use_np_features=true"],
+    ["model.scatter_type=max"], ["model.non_parametric_queries=false"],
+    ["model.non_parametric_queries=false", "model.random_queries=true"],
+    ["model.non_parametric_queries=false", "model.random_query_both=true",
+     "model.random_normal=true"],
+    ["data/collation_functions=voxelize_collate_merge"],
+    ["data.prefetch_processes=2"]],
+    ids=lambda o: "+".join(x.split("=")[0].split(".")[-1] for x in o))
+def test_ported_training_options_take_a_step(overrides, data_dir, tmp_path):
+    """Each training option that earlier raised builds through the entry
+    point and takes one CPU step with finite losses, its batch collated by
+    the experiment's own load (the collator's draws) and collate."""
+    cfg = get_parameters(TINY + [f"general.data_dir={data_dir}",
+                                 f"general.save_dir={tmp_path}/run"]
+                         + overrides)
+    exp = build_experiment(cfg)
+    try:
+        (batch,) = exp._collate_step(exp._load_scenes([[0, 1]]))
+        losses = exp.trainer.train_step(
+            batch, torch.Generator().manual_seed(0))
+    finally:
+        exp.close()
+    for key in ("loss_ce", "loss_mask", "loss_dice", "loss_noise_robust",
+                "total"):
+        assert torch.isfinite(losses[key]).all(), key
+    nr = losses["loss_noise_robust"]
+    assert bool((nr > 0).all()) == ("loss.weight_noise_robust=1.0"
+                                    in overrides)
+    assert exp.trainer.step == 1

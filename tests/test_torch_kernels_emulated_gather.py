@@ -6,7 +6,9 @@ its twin (the same f32 adds in the same offset order) in every row layout
 the kernel picks: a thread per row, groups of 8, 16 or 32 lanes, 16-byte or
 scalar lanes. The segment sum is held to its twin within the tolerances of
 tests/cuda_emu/emulation.py (another summation order) and bitwise to
-itself over two runs, with its scratch starting as NaN.
+itself over two runs, with its scratch starting as NaN; also over the
+tri-plane projection's order (ops/triplane.py), where every row appears in
+three segments, one per plane.
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ from tests.cuda_emu.emulation import (_close, _p, _unaligned,  # noqa: F401
 from unscene3d_torch.ops.k_apply import k_apply_plain
 from unscene3d_torch.ops.segment_pool import (segment_order, segment_pieces,
                                               segment_sum_plain)
+from unscene3d_torch.ops.triplane import build_triplane_maps, project_plain
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -178,3 +181,31 @@ def test_emulated_segment_sum_pieces(emu, segments, dtype, c, layout):
     assert torch.equal(outs[0], outs[1])
     assert not outs[0][[0, 7, 11]].any()
     _close(outs[0], segment_sum_plain(x, ids, s, valid), dtype)
+
+
+def test_emulated_segment_sum_triplane_order(emu):
+    """Kernel 3 unchanged over an order that holds every valid row three
+    times (once per plane's pixel): the three planes' sums of the twin, and
+    two runs bitwise equal. 40 voxels of 2 scenes, 7 padding rows, C=16
+    f32 (the targets' width)."""
+    r = np.random.RandomState(9)
+    coords = np.unique(np.column_stack([r.randint(0, 2, 40),
+                                        r.randint(0, 3, (40, 3))]), axis=0)
+    n = len(coords)
+    coords_p = np.zeros((n + 7, 4), np.int64)
+    coords_p[:n] = coords
+    valid = torch.arange(n + 7) < n
+    tri = build_triplane_maps(coords_p, valid.numpy(), 2)
+    s = tri.num_pixels
+    num_pieces = len(tri.pieces) - s - 2
+    x = torch.from_numpy(r.randn(n + 7, 16).astype(np.float32))
+    outs = []
+    for _ in range(2):
+        partial = torch.full((num_pieces, 16), float("nan"))
+        out = torch.full((s, 16), float("nan"))
+        assert emu.segment_sum(_p(x), _p(tri.order), _p(tri.pieces),
+                               _p(partial), _p(out), s, num_pieces, 16, 0,
+                               None) == 0
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    _close(outs[0], project_plain(x, tri, valid), torch.float32)

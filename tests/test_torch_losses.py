@@ -6,7 +6,8 @@ tests/test_torch_collate.py). The cost matrices agree to rtol 1e-5 / atol
 1e-5 (f32 softplus / sigmoid / einsum in other orders); the auction solver
 fed JAX's own cost tensor returns JAX's indices exactly (the same f32
 bids, prices and first-maximum ties), and so does the scipy solver; the
-criterion's terms per prediction set agree to rtol 1e-5.
+criterion's terms per prediction set agree to rtol 1e-5. A nonzero
+noise-robust weight over a batch without tri-plane maps raises.
 """
 
 import jax.numpy as jnp
@@ -123,6 +124,12 @@ def test_criterion_terms_match_jax(batches, droploss, ignore_idx):
                                    rtol=RTOL, atol=1e-7, err_msg=key)
 
 
-def test_noise_robust_loss_is_not_ported():
-    with pytest.raises(NotImplementedError, match="tri-plane"):
-        SetCriterion(matcher=HungarianMatcher(), weight_noise_robust=1.0)
+def test_noise_robust_loss_is_not_ported(batches):
+    """The noise-robust loss is ported (tests/test_torch_triplane.py); a
+    nonzero weight over a batch without tri-plane maps raises, where the
+    JAX criterion returns zeros."""
+    _, tb = batches
+    logits, masks = _preds(tb, 4)
+    crit = SetCriterion(matcher=HungarianMatcher(), weight_noise_robust=1.0)
+    with pytest.raises(ValueError, match="tri-plane"):
+        crit({"pred_logits": _t(logits), "pred_masks_seg": _t(masks)}, tb)

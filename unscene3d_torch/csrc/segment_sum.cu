@@ -7,7 +7,10 @@
 // (data/collate.py) gives a stable row order sorted by segment, and cuts
 // each segment's run of that order into pieces of at most R rows (static
 // per batch, ops/segment_pool.py:segment_pieces); invalid rows and ids
-// outside [0, S) are absent from the order.
+// outside [0, S) are absent from the order. The kernel reads the order as
+// row indices only, so a row may appear in several segments' runs: the
+// tri-plane projection (ops/triplane.py) walks an order that holds every
+// voxel once per plane.
 //
 // Bound on the H100: one read of every valid row (204,800 x 128 bf16 = 52
 // MB on the bench scene) plus the order table; the work is adds only.

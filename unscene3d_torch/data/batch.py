@@ -1,5 +1,5 @@
 """Collated batch as a dataclass of tensors (counterpart of
-unscene3d_tpu/data/batch.py:SceneBatch and Targets; no triplane maps).
+unscene3d_tpu/data/batch.py:SceneBatch and Targets).
 
 Scenes are concatenated into flat padded arrays; per-scene decomposition goes
 through precomputed gather tables. `to(device)` moves every tensor, the
@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from unscene3d_torch.ops.sparse_graph import SparseGraph
+from unscene3d_torch.ops.triplane import TriplaneMaps
 
 
 @dataclasses.dataclass
@@ -51,6 +52,9 @@ class SceneBatch:
     seg_pieces: torch.Tensor     # segment_pieces(seg_offsets): each
     #                              segment's run of seg_order in pieces
     target: Targets | None = None  # when the scenes carry instance masks
+    # the noise-robust loss's pixel maps and kernel-3 tables, when the
+    # collator builds them (build_triplane=True)
+    triplane: TriplaneMaps | None = None
 
     @property
     def batch_size(self) -> int:

@@ -1,6 +1,6 @@
 """Host-side voxelization + collation (counterpart of
-unscene3d_tpu/data/collate.py:FreeMaskCollator and its `make_crops`, without
-triplane maps or TPU tables).
+unscene3d_tpu/data/collate.py:FreeMaskCollator, MergeCollator and
+`make_crops`, without the TPU tables).
 
 numpy, and the port's native library (`unscene3d_torch/native`, C++) for
 the k3 maps and the FPS seeds, as the JAX collator calls its own;
@@ -8,10 +8,12 @@ the k3 maps and the FPS seeds, as the JAX collator calls its own;
 table equals the JAX collator's
 bitwise (tests/test_torch_collate.py): the voxelize step, the 5-level graph,
 segments and seg_valid, per-level scene tables, level_bounds, seg_counts,
-the host FPS seeds and, for scenes that carry instance `masks`, the targets.
-Two additions, static per batch: the stable segment row order and offsets
-that kernel 3 (ops/segment_pool.py) walks, and each level's one-hot parent
-tables `up_idx` that the up2 conv gathers through. With `csr_levels` (the
+the host FPS seeds, for scenes that carry instance `masks` the targets, and
+with `build_triplane` the tri-plane maps (ops/triplane.py).
+Additions, static per batch: the stable segment row order and offsets
+that kernel 3 (ops/segment_pool.py) walks, each level's one-hot parent
+tables `up_idx` that the up2 conv gathers through, and with
+`build_triplane` kernel 3's tri-plane tables. With `csr_levels` (the
 JAX collator's `data.csr_levels`) those levels are padded to 256 rows and
 carry the valid-pair tables of kernel 6, ragged and exact where the JAX
 collator buckets them for static shapes.
@@ -20,6 +22,7 @@ collator buckets them for static shapes.
 from __future__ import annotations
 
 import dataclasses
+import random
 import time
 
 import numpy as np
@@ -31,6 +34,7 @@ from unscene3d_torch.ops.hashing import sparse_quantize
 from unscene3d_torch.ops.kernel_maps import build_sparse_graph
 from unscene3d_torch.ops.segment_pool import segment_order, segment_pieces
 from unscene3d_torch.ops.sparse_graph import bucket_size, graph_from_levels
+from unscene3d_torch.ops.triplane import build_triplane_maps
 
 # instance targets are padded to a multiple of 8, at least 8 (the JAX
 # collator's target_align default)
@@ -187,7 +191,16 @@ class FreeMaskCollator:
     `win_levels` (conf/data/collation_functions/*.yaml) is accepted and
     has no effect: the window engine is how the TPU computed the k3 conv,
     and the port's kernel 1 reads the level's (27, N) map at every level.
-    `build_triplane=True` raises until the tri-plane loss is ported."""
+    `build_triplane=True` adds the noise-robust loss's tri-plane maps and
+    kernel-3 tables (`SceneBatch.triplane`).
+
+    `__call__(scenes)` is `collate(prepare(scenes))`: `prepare` is the
+    scene-level step that draws random numbers (MergeCollator's merge;
+    the identity here), so that a caller running collates on several
+    threads can take the draws in order and `collate` in parallel.
+    `reseed(seed)` restarts those draws (`Experiment.fit` calls it with its
+    seed). `alters_scenes` is true where a batch no longer holds whole
+    scenes (crops, merges), so evaluation needs another collator."""
 
     def __init__(self, voxel_size: float = 0.02, num_levels: int = 5,
                  seg_align: int = 64,
@@ -195,9 +208,6 @@ class FreeMaskCollator:
                  csr_levels: tuple = (), native: bool = True,
                  win_levels: tuple = (), build_triplane: bool = False,
                  small_crops: bool = False, very_small_crops: bool = False):
-        if build_triplane:
-            raise NotImplementedError("the tri-plane maps of the "
-                                      "noise-robust loss are not ported")
         self.voxel_size = voxel_size
         self.num_levels = num_levels
         self.seg_align = seg_align
@@ -208,9 +218,23 @@ class FreeMaskCollator:
         self.native = bool(native)
         self.small_crops = bool(small_crops)
         self.very_small_crops = bool(very_small_crops)
+        self.build_triplane = bool(build_triplane)
         self.timings = {}
 
     def __call__(self, scenes: list[dict]) -> tuple[SceneBatch, CollateMeta]:
+        return self.collate(self.prepare(scenes))
+
+    def prepare(self, scenes: list[dict]) -> list[dict]:
+        return scenes
+
+    def reseed(self, seed: int) -> None:
+        """No draws to restart: `prepare` is the identity."""
+
+    @property
+    def alters_scenes(self) -> bool:
+        return self.small_crops or self.very_small_crops
+
+    def collate(self, scenes: list[dict]) -> tuple[SceneBatch, CollateMeta]:
         t0 = time.perf_counter()
         if self.small_crops or self.very_small_crops:
             scenes = make_crops(scenes)
@@ -304,6 +328,9 @@ class FreeMaskCollator:
         target = None
         if per_scene[0]["masks"] is not None:
             target = _targets(per_scene, scene_rows, s_max, n0_pad)
+        triplane = None
+        if self.build_triplane:
+            triplane = build_triplane_maps(levels[0]["coords"], valid0, B)
 
         t = torch.from_numpy
         graph = graph_from_levels(levels)
@@ -315,7 +342,123 @@ class FreeMaskCollator:
             level_bounds=t(level_bounds), seg_counts=t(seg_counts),
             fps_idx=t(fps_idx), seg_order=t(seg_order),
             seg_offsets=t(seg_offsets),
-            seg_pieces=t(segment_pieces(seg_offsets)), target=target)
+            seg_pieces=t(segment_pieces(seg_offsets)), target=target,
+            triplane=triplane)
         self.timings = {"voxelize": t_vox - t0,
                         "total": time.perf_counter() - t0}
         return batch, meta
+
+
+class MergeCollator(FreeMaskCollator):
+    """Mix3D-style merging (unscene3d_tpu/data/collate.py:MergeCollator,
+    reference datasets/utils.py:48-179,
+    conf/data/collation_functions/voxelize_collate_merge.yaml): groups of
+    `scenes` scene dicts become single point clouds before voxelization.
+
+    - place_nearby: the second scene abuts the first along +x; place_far:
+      a uniform(-10, 10) * 200 offset (2-scene groups);
+    - make_one_pc_noise: each pair yields two merged scenes, one half
+      labelled and masked, the other half at ignore_label with no masks;
+    - otherwise the merge happens with probability `proba`.
+    Masks concatenate block-diagonally and segment ids are offset per scene
+    so that they stay unique. The JAX collator draws from Python's and
+    numpy's global generators; this one from its own `random.Random(seed)`
+    and `np.random.RandomState(seed)`, in the same order, so that seeding
+    both globals with `seed` gives the JAX collator's batches bitwise."""
+
+    def __init__(self, *args, scenes: int = 2, make_one_pc_noise: bool = False,
+                 place_nearby: bool = False, place_far: bool = False,
+                 proba: float = 1.0, ignore_label: int = 255, seed: int = 0,
+                 **kw):
+        super().__init__(*args, **kw)
+        self.scenes = int(scenes)
+        self.make_one_pc_noise = bool(make_one_pc_noise)
+        self.place_nearby = bool(place_nearby)
+        self.place_far = bool(place_far)
+        self.proba = float(proba)
+        self.ignore_label = int(ignore_label)
+        self.reseed(seed)
+
+    def reseed(self, seed: int) -> None:
+        self.py_rng = random.Random(seed)
+        self.np_rng = np.random.RandomState(seed)
+
+    @property
+    def alters_scenes(self) -> bool:
+        return True
+
+    def _merge_group(self, group, place_nearby, place_far):
+        xyz = [np.asarray(s["xyz"], np.float32).copy() for s in group]
+        if len(group) == 2 and place_nearby:
+            xyz[1][:, 0] += xyz[0][:, 0].max() - xyz[1][:, 0].min()
+        elif len(group) == 2 and place_far:
+            xyz[1] += self.np_rng.uniform(-10, 10, 3).astype(np.float32) * 200
+
+        def cat(key):
+            vals = [s.get(key) for s in group]
+            if any(v is None for v in vals):
+                return None
+            return np.concatenate([np.asarray(v) for v in vals], axis=0)
+
+        seg_off, segs = 0, []
+        for s in group:
+            sg = np.asarray(s["segments"])
+            segs.append(sg + seg_off)
+            seg_off += int(sg.max()) + 1
+        masks_list = [s.get("masks") for s in group]
+        masks = None
+        if all(m is not None for m in masks_list):
+            tot = sum(len(s["xyz"]) for s in group)
+            k_tot = sum(np.asarray(m).shape[1] for m in masks_list)
+            masks = np.zeros((tot, k_tot), bool)
+            r0 = k0 = 0
+            for m in masks_list:
+                m = np.asarray(m)
+                masks[r0:r0 + m.shape[0], k0:k0 + m.shape[1]] = m
+                r0 += m.shape[0]
+                k0 += m.shape[1]
+        out = dict(group[0])
+        out["xyz"] = np.vstack(xyz)
+        out["features"] = cat("features")
+        out["segments"] = np.concatenate(segs)
+        if masks is not None:
+            out["masks"] = masks
+        labels = cat("labels")
+        if labels is not None:
+            out["labels"] = labels
+        out["name"] = "+".join(str(s.get("name", f"s{i}"))
+                               for i, s in enumerate(group))
+        out.pop("segment_connectivity", None)
+        return out
+
+    def prepare(self, scenes_in: list[dict]) -> list[dict]:
+        """The merged scene dicts (the random draws happen here)."""
+        scenes = list(scenes_in)
+        if self.make_one_pc_noise:
+            merged = []
+            for i in range(0, len(scenes), 2):
+                if i + 1 >= len(scenes):
+                    merged.append(scenes[i])
+                    continue
+                pair = scenes[i:i + 2]
+                na, nb = len(pair[0]["xyz"]), len(pair[1]["xyz"])
+                for valid_first in (True, False):
+                    m = self._merge_group(pair, False, False)
+                    lab = np.asarray(
+                        m.get("labels", np.zeros(na + nb, np.int64))).copy()
+                    ignored = slice(na, None) if valid_first else slice(0, na)
+                    lab[ignored] = self.ignore_label
+                    m["labels"] = lab
+                    # the supervision comes from the mask matrix, so the
+                    # ignored half loses its masks too
+                    if m.get("masks") is not None:
+                        masks = np.asarray(m["masks"]).copy()
+                        masks[ignored] = False
+                        m["masks"] = masks
+                    merged.append(m)
+            return merged
+        if self.proba > self.py_rng.random():
+            return [self._merge_group(scenes[i:i + self.scenes],
+                                      self.place_nearby, self.place_far)
+                    for i in range(0, len(scenes), self.scenes)]
+        return scenes

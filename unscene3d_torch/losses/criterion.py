@@ -7,10 +7,14 @@ of unscene3d_tpu/losses/criterion.py:SetCriterion):
     scene's matched-instance count;
   * DropLoss (`use_droploss`): matches whose intersection over sum is below
     the threshold get zero weight;
-  * `ignore_mask_idx`: prediction sets whose losses get zero weight.
+  * `ignore_mask_idx`: prediction sets whose losses get zero weight;
+  * the noise-robust tri-plane projection loss per prediction set
+    (`weight_noise_robust`, ops/triplane.py), on the batch's tri-plane maps.
 
-The noise-robust tri-plane loss is not ported: a nonzero
-`weight_noise_robust` raises NotImplementedError.
+One deliberate difference from the JAX package: a nonzero
+`weight_noise_robust` with a batch that carries no tri-plane maps raises
+ValueError, where the JAX criterion silently returns zeros
+(unscene3d_tpu/losses/criterion.py:66-71).
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ import torch.nn.functional as F
 
 from unscene3d_torch.data.batch import SceneBatch, Targets
 from unscene3d_torch.losses.matcher import HungarianMatcher
+from unscene3d_torch.ops.segment_pool import gather_rows
+from unscene3d_torch.ops.triplane import (normalized_target_projection,
+                                          triplane_losses)
 
 
 @dataclasses.dataclass
@@ -38,11 +45,6 @@ class SetCriterion:
     ignore_label: int = 253
     ignore_mask_idx: tuple = ()
 
-    def __post_init__(self):
-        if self.weight_noise_robust != 0.0:
-            raise NotImplementedError(
-                "the noise-robust tri-plane loss is not ported")
-
     def __call__(self, outputs: dict, batch: SceneBatch) -> dict:
         """Returns loss_ce / loss_mask / loss_dice / loss_noise_robust (L,),
         total (), num_masks () and matched_q (L, B, T) (-1 for padding)."""
@@ -56,8 +58,12 @@ class SetCriterion:
                                                matched_q)}
         losses.update(self._loss_masks(pred_masks, targets, matched_q,
                                        batch.seg_valid))
-        losses["loss_noise_robust"] = torch.zeros(
-            L, dtype=torch.float32, device=pred_logits.device)
+        if self.weight_noise_robust != 0.0:
+            losses["loss_noise_robust"] = self._loss_noise_robust(
+                pred_masks, targets, matched_q, batch)
+        else:
+            losses["loss_noise_robust"] = torch.zeros(
+                L, dtype=torch.float32, device=pred_logits.device)
         per_set = (self.weight_ce * losses["loss_ce"]
                    + self.weight_mask * losses["loss_mask"]
                    + self.weight_dice * losses["loss_dice"]
@@ -139,3 +145,34 @@ class SetCriterion:
         dice = w * (1.0 - (numerator + 1.0) / (denominator + 1.0))
         loss_dice = (dice.sum(-1) / num_masks).sum(-1)
         return {"loss_mask": loss_mask, "loss_dice": loss_dice}
+
+    def _loss_noise_robust(self, pred_masks, targets: Targets, matched_q,
+                           batch: SceneBatch):
+        """(L,) tri-plane loss of each set (unscene3d_tpu/losses/
+        criterion.py:165-190). The JAX criterion reads the voxel logits of
+        every set (`return_aux_vox`, (L, N0, Q)); those are an exact take
+        of the segment logits, so the matched columns are gathered from
+        the segment logits here, their sigmoids taken per segment and
+        spread to the voxels (`gather_rows`: its backward is kernel 3 over
+        the segment order), and the (L, N0, Q) stack is never built. The
+        target projection and the counts are the same for every set and
+        computed once."""
+        tri = batch.triplane
+        if tri is None:
+            raise ValueError("weight_noise_robust != 0 needs the batch's "
+                             "tri-plane maps (FreeMaskCollator("
+                             "build_triplane=True))")
+        L, B, S, Q = pred_masks.shape
+        T = matched_q.shape[-1]
+        valid = batch.valid
+        mq = torch.clamp_min(matched_q, 0)[:, :, None, :].expand(L, B, S, T)
+        sig = torch.sigmoid(torch.take_along_dim(pred_masks, mq, dim=3)
+                            .float())                           # (L,B,S,T)
+        seg_flat = batch.batch_idx.long() * S + batch.point2segment.long()
+        pred = gather_rows(sig.permute(1, 2, 0, 3).reshape(B * S, L * T),
+                           seg_flat, valid, batch.seg_order,
+                           batch.seg_offsets, batch.seg_pieces)
+        t_norm = normalized_target_projection(targets.vox_masks, tri, valid)
+        t_valid = targets.valid[None] & (matched_q >= 0)
+        return triplane_losses(pred.reshape(-1, L, T), t_norm, tri, valid,
+                               t_valid)

@@ -56,31 +56,38 @@ def build_experiment(cfg, device=None):
     train_ds = instantiate(cfg.data.datasets.train_dataset)
     val_ds = instantiate(cfg.data.datasets.validation_dataset)
     test_ds = instantiate(cfg.data.datasets.test_dataset)
-    triplane = criterion.weight_noise_robust != 0.0
-    collator = instantiate(cfg.data.collation_functions.train_collation,
-                           build_triplane=triplane)
+    # the noise-robust loss reads the train batches' tri-plane maps; the
+    # evaluation reads none (the JAX entry point builds them for both)
+    collator = instantiate(
+        cfg.data.collation_functions.train_collation,
+        build_triplane=criterion.weight_noise_robust != 0.0)
     eval_collator = instantiate(
-        cfg.data.collation_functions.validation_collation,
-        build_triplane=triplane)
+        cfg.data.collation_functions.validation_collation)
     return Experiment(cfg, model, criterion, train_ds, val_ds, test_ds,
                       collator, eval_collator=eval_collator, device=device)
 
 
 def train(cfg):
     exp = build_experiment(cfg)
-    return exp.fit(
-        seed=int(cfg.general.seed),
-        resume=bool(cfg.general.resume),
-        checkpoint=cfg.general.checkpoint,
-    )
+    try:
+        return exp.fit(
+            seed=int(cfg.general.seed),
+            resume=bool(cfg.general.resume),
+            checkpoint=cfg.general.checkpoint,
+        )
+    finally:
+        exp.close()
 
 
 def test(cfg):
     exp = build_experiment(cfg)
-    return exp.test(
-        checkpoint=cfg.general.checkpoint,
-        save_for_freemask=bool(cfg.general.save_for_freemask),
-    )
+    try:
+        return exp.test(
+            checkpoint=cfg.general.checkpoint,
+            save_for_freemask=bool(cfg.general.save_for_freemask),
+        )
+    finally:
+        exp.close()
 
 
 def main(argv=None):

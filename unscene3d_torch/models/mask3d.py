@@ -8,7 +8,19 @@ inputs are computed once and reused by every round. Training
 (`model.train()`): each round samples each scene's points per level
 (`_sample_level`, uniform scores from a torch.Generator, top-k), with the
 gradient stopped through the pooled block-mask readout as the JAX model
-stops it. The random / learned query modes raise NotImplementedError.
+stops it; `max_sample_size` keeps every point in training too.
+
+The query modes of conf/model/mask3d.yaml: FPS queries
+(`non_parametric_queries`, the default) with zero or projected backbone
+features (`use_np_features`) as contents, random positions
+(`random_queries`), random positions and contents (`random_query_both`,
+uniform or `random_normal`), or learned ones (`query_feat`, `query_pos`).
+Random queries are drawn from the forward's generator, or taken from
+`query_draw` (tests feed both packages the same numbers). Also
+`use_level_embed`, `scatter_type="max"` segment pooling, and the decoder
+layers' `pre_norm` and `dropout` (models/transformer_layers.py, masks from
+the forward's generator in training). Only `train_on_segments=False`
+raises: the JAX model never reads it.
 
 Shapes: Q queries, S padded segments per scene, C classes, L =
 num_decoders * len(hlevels) + 1 prediction sets.
@@ -26,6 +38,7 @@ from unscene3d_torch.models.transformer_layers import (CrossAttentionLayer,
                                                        LayerNorm,
                                                        SelfAttentionLayer)
 from unscene3d_torch.ops import conv_ops
+from unscene3d_torch.ops.segment_ops import segment_max
 from unscene3d_torch.ops.segment_pool import segment_sum
 
 
@@ -55,18 +68,21 @@ def _sample_level(batch: SceneBatch, hlevel: int, sample_size: int,
 
 
 def _attend_level(layers, queries, query_pos, blocked, sel_valid, src,
-                  batched_pe):
+                  batched_pe, level_embed=None, generator=None):
     """One masked cross-attn + self-attn + FFN step. blocked: (B, P, Q) True
-    = the query does not attend to the point."""
+    = the query does not attend to the point; level_embed (D,) is added to
+    the level's features; generator draws the dropout masks."""
     cross, self_attn, ffn = layers
     # un-mask queries that mask out every sampled point
     all_blocked = blocked.sum(dim=1) == blocked.shape[1]
     blocked = blocked & ~all_blocked[:, None, :]
     blocked = blocked | ~sel_valid[..., None]
+    if level_embed is not None:
+        src = src + level_embed
     q = cross(queries, src, block_mask=blocked.transpose(1, 2),
-              pos=batched_pe, query_pos=query_pos)
-    q = self_attn(q, query_pos=query_pos)
-    return ffn(q)
+              pos=batched_pe, query_pos=query_pos, generator=generator)
+    q = self_attn(q, query_pos=query_pos, generator=generator)
+    return ffn(q, generator=generator)
 
 
 class Mask3D(nn.Module):
@@ -93,32 +109,15 @@ class Mask3D(nn.Module):
                  train_on_segments: bool = True, voxel_size: float = 0.02,
                  dtype=torch.float32):
         super().__init__()
-        # conf/model/mask3d.yaml's keys: each value the port does not
+        # conf/model/mask3d.yaml's keys: the one value the port does not
         # implement raises here, at construction
-        if pre_norm:
-            raise NotImplementedError("pre-norm decoder layers are not ported"
-                                      " (conf/model/mask3d.yaml sets false)")
-        if random_queries or random_query_both or random_normal:
-            raise NotImplementedError(
-                "random query modes are not ported (conf/model/mask3d.yaml "
-                "sets random_queries, random_query_both, random_normal "
-                "false)")
-        if max_sample_size:
-            raise NotImplementedError("max_sample_size is not ported "
-                                      "(conf/model/mask3d.yaml sets false)")
         if not train_on_segments:
             raise NotImplementedError(
                 "only segment-space masks are ported (train_on_segments: "
-                "true, as every script of the self-training round sets)")
-        if not non_parametric_queries:
-            raise NotImplementedError(
-                "only non-parametric (FPS) queries are ported")
-        if use_level_embed or use_np_features or scatter_type != "mean":
-            raise NotImplementedError(
-                "level embeddings, np features and max scatter are not ported")
-        if dropout != 0.0:
-            raise NotImplementedError("decoder dropout is not ported "
-                                      "(conf/model/mask3d.yaml sets 0.0)")
+                "true, as every script of the self-training round sets; the "
+                "JAX model never reads the key)")
+        if scatter_type not in ("mean", "max"):
+            raise ValueError(f"scatter_type {scatter_type!r}: mean or max")
         D = hidden_dim
         self.backbone = backbone
         self.num_classes = num_classes
@@ -128,27 +127,48 @@ class Mask3D(nn.Module):
         self.shared_decoder = shared_decoder
         self.hlevels = tuple(hlevels)
         self.sample_sizes = tuple(sample_sizes)
+        self.max_sample_size = bool(max_sample_size)
+        self.non_parametric_queries = bool(non_parametric_queries)
+        self.random_queries = bool(random_queries)
+        self.random_query_both = bool(random_query_both)
+        self.random_normal = bool(random_normal)
+        self.use_np_features = bool(use_np_features)
+        self.scatter_type = scatter_type
         self.voxel_size = float(voxel_size)
         self.dtype = dtype
         self.pos_enc = PositionEmbeddingCoordsSine(
             d_pos=D, gauss_scale=gauss_scale, normalize=normalize_pos_enc,
             pos_type=positional_encoding_type, dtype=dtype)
-        self.query_projection = nn.ModuleList([Dense(D, D) for _ in range(2)])
         fpn_dims = self._fpn_dims(backbone)
+        # the JAX model creates a module's params only where it calls it:
+        # the query projection only for FPS queries (random_query_both
+        # declares a 2D-wide one and never calls it)
+        if self.non_parametric_queries:
+            self.query_projection = nn.ModuleList([Dense(D, D)
+                                                   for _ in range(2)])
+            if self.use_np_features:
+                self.np_feature_projection = nn.ModuleList([
+                    Dense(fpn_dims[-1], D), Dense(D, D)])
+        elif not (self.random_queries or self.random_query_both):
+            self.query_feat = nn.Parameter(torch.zeros(num_queries, D))
+            self.query_pos = nn.Parameter(torch.zeros(num_queries, D))
+        self.level_embed = (nn.Parameter(torch.zeros(len(self.hlevels), D))
+                            if use_level_embed else None)
         self.mask_features_head = Dense(fpn_dims[-1], D)
         self.mask_embed_head = nn.ModuleList([Dense(D, D) for _ in range(2)])
         self.class_embed_head = Dense(D, num_classes)
         self.decoder_norm = LayerNorm(D)
         n_sets = 1 if shared_decoder else num_decoders
         nl = len(self.hlevels)
+        layer = dict(dtype=dtype, pre_norm=pre_norm, dropout=dropout)
         self.cross_attention = nn.ModuleList([nn.ModuleList([
-            CrossAttentionLayer(D, num_heads, dtype) for _ in range(nl)])
+            CrossAttentionLayer(D, num_heads, **layer) for _ in range(nl)])
             for _ in range(n_sets)])
         self.self_attention = nn.ModuleList([nn.ModuleList([
-            SelfAttentionLayer(D, num_heads, dtype) for _ in range(nl)])
+            SelfAttentionLayer(D, num_heads, **layer) for _ in range(nl)])
             for _ in range(n_sets)])
         self.ffn = nn.ModuleList([nn.ModuleList([
-            FFNLayer(D, dim_feedforward, dtype) for _ in range(nl)])
+            FFNLayer(D, dim_feedforward, **layer) for _ in range(nl)])
             for _ in range(n_sets)])
         self.lin_squeeze = nn.ModuleList([nn.ModuleList([
             Dense(fpn_dims[h], D) for h in self.hlevels])
@@ -178,17 +198,71 @@ class Mask3D(nn.Module):
                 * valid[:, None].to(seg_logits.dtype))
 
     def forward(self, batch: SceneBatch,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                return_aux_vox: bool = False, query_draw=None) -> dict:
         """Returns pred_logits (L,B,Q,C), pred_masks_seg (L,B,S,Q),
-        pred_masks_vox (1,N0,Q) for the final set, sampled_coords (B,Q,3),
-        backbone_features and mask_features. Eval runs without autograd;
-        training draws the point samples from `generator`."""
+        pred_masks_vox (1,N0,Q) for the final set, or (L,N0,Q) for every
+        set with return_aux_vox, sampled_coords (B,Q,3) (None unless the
+        queries are FPS seeds), backbone_features and mask_features. Eval
+        runs without autograd; training draws the point samples and the
+        dropout masks from `generator`. Random queries are drawn from
+        `generator` (the default generator when None), or taken from
+        `query_draw`: (B, Q, D) uniform [0, 1) numbers for random_queries,
+        (B, Q, 2D) uniform or, with random_normal, normal ones for
+        random_query_both."""
         if not self.training:
             with torch.no_grad():
-                return self._forward(batch, None)
-        return self._forward(batch, generator)
+                return self._forward(batch, generator, return_aux_vox,
+                                     query_draw)
+        return self._forward(batch, generator, return_aux_vox, query_draw)
 
-    def _forward(self, batch: SceneBatch, generator) -> dict:
+    def _queries(self, batch, pcd_features, generator, query_draw):
+        """(queries, query_pos, sampled_coords) of the configured mode
+        (unscene3d_tpu/models/mask3d.py:291-351)."""
+        B, Q, D = batch.batch_size, self.num_queries, self.hidden_dim
+        dev = pcd_features.device
+        if self.non_parametric_queries:
+            # FPS queries from the host seeds
+            scene0 = batch.scene_idx[0].long()
+            fps = batch.fps_idx.long()
+            raw_by_scene = batch.raw_coords[scene0]                # (B,n0,3)
+            sampled_coords = torch.gather(
+                raw_by_scene, 1, fps[..., None].expand(-1, -1, 3))  # (B,Q,3)
+            mn = batch.level_bounds[:, 0, 0]
+            mx = batch.level_bounds[:, 0, 1]
+            query_pos = self.pos_enc(sampled_coords, mn[:, None], mx[:, None])
+            for layer in self.query_projection:
+                query_pos = torch.relu(layer(query_pos))
+            if not self.use_np_features:
+                return torch.zeros_like(query_pos), query_pos, sampled_coords
+            feats = pcd_features[scene0]                          # (B,n0,F)
+            queries = torch.gather(
+                feats, 1, fps[..., None].expand(-1, -1, feats.shape[-1]))
+            proj0, proj1 = self.np_feature_projection
+            return proj1(torch.relu(proj0(queries))), query_pos, \
+                sampled_coords
+        if self.random_queries or self.random_query_both:
+            width = 2 * D if self.random_query_both else D
+            if query_draw is None:
+                gdev = generator.device if generator is not None else dev
+                draw = torch.randn if self.random_normal and \
+                    self.random_query_both else torch.rand
+                query_draw = draw((B, Q, width), generator=generator,
+                                  device=gdev)
+            if tuple(query_draw.shape) != (B, Q, width):
+                raise ValueError(f"query_draw: shape {tuple(query_draw.shape)}"
+                                 f", expected {(B, Q, width)}")
+            qpf = query_draw.to(dev, self.dtype)
+            if not (self.random_query_both and self.random_normal):
+                qpf = qpf - 0.5
+            if self.random_queries:
+                return torch.zeros_like(qpf), qpf, None
+            return qpf[..., :D], qpf[..., D:], None
+        return (self.query_feat[None].expand(B, -1, -1),
+                self.query_pos[None].expand(B, -1, -1), None)
+
+    def _forward(self, batch: SceneBatch, generator, return_aux_vox,
+                 query_draw) -> dict:
         B = batch.batch_size
         S = batch.num_segments_padded
         D = self.hidden_dim
@@ -214,29 +288,24 @@ class Mask3D(nn.Module):
                                   mx[None])[0]
                 pe_by_level.append(pe * levels[lv].valid[:, None].to(pe.dtype))
 
-        # mask features + segment mean-pool (kernel 3)
+        # mask features + segment pool: the mean through kernel 3, or the
+        # max (scatter_type="max", scatter_reduce amax: order-independent)
         mask_features = self.mask_features_head(pcd_features)
         mask_features = mask_features * valid0[:, None].to(mask_features.dtype)
         seg_flat = (batch.batch_idx.long() * S
                     + batch.point2segment.long())
-        s = segment_sum(mask_features, seg_flat, B * S, valid0,
-                        order=batch.seg_order, offsets=batch.seg_offsets,
-                        pieces=batch.seg_pieces)
-        mask_segments = (s / torch.clamp_min(batch.seg_counts, 1.0)
-                         .to(s.dtype)[:, None]).reshape(B, S, D)
+        if self.scatter_type == "mean":
+            s = segment_sum(mask_features, seg_flat, B * S, valid0,
+                            order=batch.seg_order, offsets=batch.seg_offsets,
+                            pieces=batch.seg_pieces)
+            s = s / torch.clamp_min(batch.seg_counts, 1.0).to(s.dtype)[:, None]
+        else:
+            s = segment_max(mask_features, seg_flat, B * S, valid0,
+                            counts=batch.seg_counts)
+        mask_segments = s.reshape(B, S, D)
 
-        # FPS queries from the host seeds
-        scene0 = batch.scene_idx[0].long()
-        raw_by_scene = batch.raw_coords[scene0]                    # (B, n0, 3)
-        fps = batch.fps_idx.long()
-        sampled_coords = torch.gather(
-            raw_by_scene, 1, fps[..., None].expand(-1, -1, 3))     # (B, Q, 3)
-        mn = batch.level_bounds[:, 0, 0]
-        mx = batch.level_bounds[:, 0, 1]
-        query_pos = self.pos_enc(sampled_coords, mn[:, None], mx[:, None])
-        for layer in self.query_projection:
-            query_pos = torch.relu(layer(query_pos))
-        queries = torch.zeros_like(query_pos)
+        queries, query_pos, sampled_coords = self._queries(
+            batch, pcd_features, generator, query_draw)
 
         # pooled mask features per level: the block mask at level g is a
         # linear readout of these with each round's mask embedding, under a
@@ -258,7 +327,8 @@ class Mask3D(nn.Module):
                 src=self.lin_squeeze[dd][i](
                     fpn[self.hlevels[i]][sel].to(self.dtype)))
 
-        if not self.training:
+        cached = None
+        if not self.training or self.max_sample_size:
             # sampling is the identity: the per-level attention inputs are
             # the same in every round
             cached = [[level_inputs(dd, i, batch.scene_idx[4 - h],
@@ -274,7 +344,7 @@ class Mask3D(nn.Module):
                     queries, mask_segments, batch.seg_valid)
                 predictions_class.append(out_class)
                 predictions_seg.append(seg_logits)
-                if not self.training:
+                if cached is not None:
                     c = cached[dd][i]
                 else:
                     c = level_inputs(dd, i, *_sample_level(
@@ -284,18 +354,22 @@ class Mask3D(nn.Module):
                 blocked = torch.sigmoid(blk) < 0.5
                 layers = (self.cross_attention[dd][i],
                           self.self_attention[dd][i], self.ffn[dd][i])
+                level_embed = (None if self.level_embed is None
+                               else self.level_embed[i])
                 queries = _attend_level(layers, queries, query_pos, blocked,
-                                        c["sel_valid"], c["src"], c["pe"])
+                                        c["sel_valid"], c["src"], c["pe"],
+                                        level_embed, generator)
 
         out_class, seg_logits, _ = self._mask_module(queries, mask_segments,
                                                      batch.seg_valid)
         predictions_class.append(out_class)
         predictions_seg.append(seg_logits)
-        vox = self._vox_from_seg(seg_logits, seg_flat, valid0)
+        vox_sets = predictions_seg if return_aux_vox else predictions_seg[-1:]
         return {
             "pred_logits": torch.stack(predictions_class),
             "pred_masks_seg": torch.stack(predictions_seg),
-            "pred_masks_vox": vox[None],
+            "pred_masks_vox": torch.stack([
+                self._vox_from_seg(v, seg_flat, valid0) for v in vox_sets]),
             "sampled_coords": sampled_coords,
             "backbone_features": pcd_features,
             "mask_features": mask_features,

@@ -8,7 +8,9 @@ initialisation.
   * flax `Dense` kernels (in, out) are transposed for nn.Linear; LayerNorm
     `scale` becomes `weight`;
   * `DenseGeneral` q/k/v kernels (D, H, dh) and biases (H, dh) are reshaped
-    to (H*dh, D) / (H*dh,); out_proj kernels (H, dh, D) to (D, H*dh).
+    to (H*dh, D) / (H*dh,); out_proj kernels (H, dh, D) to (D, H*dh);
+  * Mask3D's own params (`query_feat`, `query_pos`, `level_embed`) copy as
+    they are; `np_feat_proj_i` becomes `np_feature_projection.i`.
 `load_flax_variables` raises on any missing or unused key;
 `load_flax_backbone_variables` is the same bridge for a stand-alone backbone
 (the CSC feature extractor's). It copies into
@@ -35,6 +37,7 @@ from unscene3d_torch.models.transformer_layers import Dense, LayerNorm
 # flax module names -> this package's attribute paths
 _RENAMES = [
     (re.compile(r"^query_proj_(\d+)$"), r"query_projection.\1"),
+    (re.compile(r"^np_feat_proj_(\d+)$"), r"np_feature_projection.\1"),
     (re.compile(r"^mask_embed_(\d+)$"), r"mask_embed_head.\1"),
     (re.compile(r"^cross_(\d+)_(\d+)$"), r"cross_attention.\1.\2"),
     (re.compile(r"^self_(\d+)_(\d+)$"), r"self_attention.\1.\2"),
@@ -71,8 +74,8 @@ def torch_state_from_flax(variables) -> dict[str, torch.Tensor]:
             *mods, leaf = path
             names = [_rename(m) for m in mods]
             arr = np.asarray(arr, np.float32)
-            if mods and mods[0] == "backbone" or leaf in ("gauss_B", "mean",
-                                                          "var"):
+            if (not mods or mods[0] == "backbone"
+                    or leaf in ("gauss_B", "mean", "var")):
                 pass                                   # same layout
             elif mods[-1] in ("q_proj", "k_proj", "v_proj"):
                 if leaf == "kernel":
@@ -196,7 +199,8 @@ def init_random_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
     """Seeded random weights with the JAX package's initialiser families:
     sparse convs variance_scaling(2, fan_out, truncated normal), Dense
     lecun normal with zero bias, BatchNorm / LayerNorm at identity, gauss_B
-    normal * gauss_scale. Deterministic for a given seed on any device."""
+    normal * gauss_scale, Mask3D's learned queries and level embeddings
+    normal(1). Deterministic for a given seed on any device."""
     gen = torch.Generator().manual_seed(int(seed))
     stddev_fix = 0.87962566103423978   # std of a unit normal cut at +-2
     with torch.no_grad():
@@ -222,6 +226,10 @@ def init_random_(model: torch.nn.Module, seed: int = 0) -> torch.nn.Module:
             elif isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+            for name in ("query_feat", "query_pos", "level_embed"):
+                p = getattr(mod, name, None)
+                if isinstance(p, torch.nn.Parameter):
+                    p.copy_(torch.randn(tuple(p.shape), generator=gen))
             if hasattr(mod, "gauss_B"):
                 mod.gauss_B.copy_(torch.randn(tuple(mod.gauss_B.shape),
                                               generator=gen) * mod.gauss_scale)

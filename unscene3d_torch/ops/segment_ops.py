@@ -35,8 +35,10 @@ def segment_mean(data, segment_ids, num_segments: int, valid=None):
     return s / torch.clamp_min(cnt, 1.0).reshape((-1,) + (1,) * (data.dim() - 1))
 
 
-def segment_max(data, segment_ids, num_segments: int, valid=None):
-    """Max of rows per segment; empty segments yield 0."""
+def segment_max(data, segment_ids, num_segments: int, valid=None,
+                counts=None):
+    """Max of rows per segment; empty segments yield 0. `counts`: the rows
+    per segment where the caller holds them (else counted here)."""
     ids, total = _route_invalid(segment_ids, num_segments, valid)
     idx = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
     out = torch.full((total,) + tuple(data.shape[1:]),
@@ -44,6 +46,7 @@ def segment_max(data, segment_ids, num_segments: int, valid=None):
                      device=data.device)
     out = out.scatter_reduce(0, idx, data, reduce="amax",
                              include_self=True)[:num_segments]
-    cnt = segment_count(segment_ids, num_segments, valid)
+    cnt = (segment_count(segment_ids, num_segments, valid)
+           if counts is None else counts)
     empty = (cnt == 0).reshape((-1,) + (1,) * (data.dim() - 1))
     return torch.where(empty, torch.zeros_like(out), out)

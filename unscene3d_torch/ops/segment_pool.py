@@ -12,14 +12,18 @@ pieces of at most ROWS_PER_PIECE rows (`segment_pieces`), so that one large
 segment spreads over many warps: pass 1 sums each piece into an f32
 scratch, pass 2 adds each segment's pieces in order and rounds once. The
 collate builds both tables on the host, static per batch like
-`seg_counts`.
+`seg_counts`. The kernel reads `order` as row indices and nothing else of
+the rows' ids, so a row may appear in several segments' runs: the
+tri-plane projection (ops/triplane.py) walks one order in which every
+voxel appears once per plane, with no change to the kernel.
 
 `segment_sum` runs the plain twin `segment_sum_plain` for CPU tensors only.
 For a CUDA tensor it launches the kernel's two passes or raises;
 `segment_sum.launches` counts the calls that launch them (one per call).
 When x requires grad the sum runs inside an autograd Function whose
 backward is the gather g[ids[i]] * ok[i] in plain torch
-(segment_pool.py:_vjp_bwd).
+(segment_pool.py:_vjp_bwd). `gather_rows` is its transpose, a plain
+gather whose backward is kernel 3 over the same order.
 """
 
 from __future__ import annotations
@@ -120,6 +124,32 @@ def segment_sum(x, ids, num_segments, valid, order, offsets, pieces=None):
         return _SegmentSum.apply(x, ids, num_segments, valid, order, offsets,
                                  pieces)
     return _segment_sum(x, ids, num_segments, valid, order, offsets, pieces)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ids, valid, order, offsets, pieces):
+        ctx.save_for_backward(ids, valid, order, offsets, pieces)
+        ctx.num_segments = x.shape[0]
+        return x[ids.long()] * valid[:, None].to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, valid, order, offsets, pieces = ctx.saved_tensors
+        dx = _segment_sum(g.contiguous(), ids, ctx.num_segments, valid,
+                          order, offsets, pieces)
+        return dx, None, None, None, None, None
+
+
+def gather_rows(x, ids, valid, order, offsets, pieces):
+    """(S, C) -> (N, C): out[i] = x[ids[i]] on valid rows, 0 elsewhere; ids
+    must lie in [0, S). Under autograd its backward is the segment sum of
+    the output gradient (kernel 3 on a CUDA tensor: each segment's rows in
+    the host's order, no float atomics), with order / offsets / pieces as
+    for `segment_sum(.., ids, S, valid, ..)`."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherRows.apply(x, ids, valid, order, offsets, pieces)
+    return x[ids.long()] * valid[:, None].to(x.dtype)
 
 
 def _int32_on(t, x):

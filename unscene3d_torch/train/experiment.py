@@ -24,17 +24,21 @@ Left out, as what the TPU needed and the port does not:
   * `enable_compilation_cache` and `initialize_from_env`;
   * the eval-collator swap on `win_levels` (experiment.py:306-319): the
     window engine is the TPU's; without an eval collator, a collator with
-    crops gets a plain one for eval, since eval scores whole scenes.
+    crops or merges gets a plain one for eval, since eval scores whole
+    scenes.
 Also unlike the JAX package, `fit` draws no example batch (the JAX
 package collates one to initialise its state; the port's model holds its
 seeded random weights from construction, `general.seed`), and the scene
-loads of a prefetched epoch run in index order, so one seed gives the same
-augmentation draws whatever the number of worker threads.
+loads of a prefetched epoch run in index order, with the collator's own
+draws (`prepare`: MergeCollator's merge, restarted from the seed of `fit`
+by `reseed`), so one seed gives the same augmentation and merge draws
+whatever the number of worker threads.
 
-Raising NotImplementedError where the config asks for them:
-`data.prefetch_processes > 0` (CollatePool), a MergeCollator,
-`general.backbone_checkpoint` and `general.save_visualizations`; the
-noise-robust loss and decoder dropout raise in the criterion and the model.
+`data.prefetch_processes > 0` collates the evaluation's scenes in a pool of
+spawned processes (`CollatePool`, the JAX package's), which never touch the
+GPU. Raising NotImplementedError where the config asks for them:
+`general.backbone_checkpoint` (the JAX package never reads it) and
+`general.save_visualizations`.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import contextlib
 import csv
 import dataclasses
 import json
+import multiprocessing
 import os
 import queue
 import threading
@@ -52,6 +57,7 @@ import time
 import numpy as np
 import torch
 
+from unscene3d_torch import native as native_lib
 from unscene3d_torch.data.collate import FreeMaskCollator
 from unscene3d_torch.eval.device_post import to_host
 from unscene3d_torch.eval.instance_eval import evaluate_instances
@@ -137,16 +143,16 @@ def build_loggers(cfg) -> MultiLogger:
     return MultiLogger(loggers)
 
 
-def map_tensors(obj, fn):
+def map_tensors(obj, fn, kind=torch.Tensor):
     """`obj` (a batch: dataclasses and tuples of tensors) with `fn` applied
-    to every tensor."""
-    if isinstance(obj, torch.Tensor):
+    to every tensor (every instance of `kind`)."""
+    if isinstance(obj, kind):
         return fn(obj)
     if isinstance(obj, tuple):
-        return tuple(map_tensors(v, fn) for v in obj)
+        return tuple(map_tensors(v, fn, kind) for v in obj)
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
-            f.name: map_tensors(getattr(obj, f.name), fn)
+            f.name: map_tensors(getattr(obj, f.name), fn, kind)
             for f in dataclasses.fields(obj) if f.init})
     return obj
 
@@ -161,6 +167,47 @@ def tree_bytes(obj) -> int:
 
     map_tensors(obj, add)
     return total[0]
+
+
+def _collate_worker_init():
+    """Initializer of a CollatePool process: no GPU is visible to it (the
+    collate is numpy and C++; a CUDA call would fail rather than open a
+    second context on the card), torch on one thread, and the native
+    library loaded from the build the parent made."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+    native_lib.load()
+
+
+def _collate_in_worker(collator, scenes):
+    """A collate in a CollatePool process: the batch's tensors travel back
+    as numpy arrays (plain pickles, no shared-memory handles)."""
+    batch, meta = collator(scenes)
+    return map_tensors(batch, torch.Tensor.numpy), meta
+
+
+class CollatePool:
+    """Eval collation in spawned processes (unscene3d_tpu/train/
+    experiment.py:CollatePool, `data.prefetch_processes`): the collate runs
+    outside the interpreter's lock, as the reference's DataLoader worker
+    processes do. The parent builds the native library before the workers
+    start; they load it and never initialise CUDA."""
+
+    def __init__(self, num_procs: int):
+        native_lib.load()
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=max(1, int(num_procs)),
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=_collate_worker_init)
+
+    def collate(self, collator, scenes):
+        """(SceneBatch of CPU tensors, CollateMeta) of `collator(scenes)`."""
+        batch, meta = self.pool.submit(_collate_in_worker, collator,
+                                       scenes).result()
+        return map_tensors(batch, torch.from_numpy, np.ndarray), meta
+
+    def shutdown(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
 
 
 class _PrefetchError:
@@ -294,15 +341,10 @@ class Experiment:
                  device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if int(cfg.data.get("prefetch_processes", 0) or 0) > 0:
-            raise NotImplementedError("data.prefetch_processes > 0 "
-                                      "(CollatePool) is not ported")
-        if type(collator).__name__ == "MergeCollator":
-            raise NotImplementedError("MergeCollator is not ported")
         if cfg.general.get("backbone_checkpoint"):
             raise NotImplementedError(
-                "general.backbone_checkpoint needs the ME state-dict "
-                "converter, which is not ported")
+                "general.backbone_checkpoint: the JAX package never reads "
+                "it, and the port does not either")
         if bool(cfg.general.get("save_visualizations", False)):
             raise NotImplementedError("save_visualizations is not ported")
         self.model = model
@@ -311,10 +353,9 @@ class Experiment:
         self.validation_dataset = validation_dataset
         self.test_dataset = test_dataset
         self.collator = collator
-        if eval_collator is None and (collator.small_crops
-                                      or collator.very_small_crops):
-            # eval scores whole scenes: a crop would be held to the whole
-            # scene's GT
+        if eval_collator is None and collator.alters_scenes:
+            # eval scores whole scenes: a crop or a merge would be held to
+            # the whole scene's GT
             eval_collator = FreeMaskCollator(
                 voxel_size=collator.voxel_size,
                 num_levels=collator.num_levels,
@@ -329,6 +370,10 @@ class Experiment:
 
         self.batch_size = int(cfg.data.batch_size)
         self.num_workers = int(cfg.data.get("num_workers", 1) or 1)
+        # > 0: evaluation collates in that many spawned processes
+        self.prefetch_processes = int(cfg.data.get("prefetch_processes", 0)
+                                      or 0)
+        self._collate_pool = None
         # eval re-collates the same scenes every validation epoch: keep
         # collated host batches up to eval_cache_gb and device batches up
         # to eval_cache_device_gb (0 disables either)
@@ -368,11 +413,15 @@ class Experiment:
         return [sampler.next(self.batch_size)]
 
     def _load_scenes(self, step_ids: list[list[int]]) -> list[list[dict]]:
-        return [[self.train_dataset[i] for i in ids] for ids in step_ids]
+        """One step's scenes, through the collator's draws (`prepare`):
+        the prefetcher runs this in index order."""
+        return [self.collator.prepare([self.train_dataset[i] for i in ids])
+                for ids in step_ids]
 
     def _collate_step(self, scene_lists: list[list[dict]]) -> list:
         """Host batches (pinned when they go to a GPU) of one step."""
-        batches = [self.collator(scenes)[0] for scenes in scene_lists]
+        batches = [self.collator.collate(scenes)[0]
+                   for scenes in scene_lists]
         if self.device.type == "cuda":
             batches = [map_tensors(b, torch.Tensor.pin_memory)
                        for b in batches]
@@ -389,6 +438,7 @@ class Experiment:
         max_epochs = int(cfg.trainer.max_epochs) if max_epochs is None else max_epochs
         rng_np = np.random.RandomState(seed)
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.collator.reseed(seed)
         trainer = self.trainer
         ckpt_dir = os.path.join(self.save_dir, "checkpoints")
         if checkpoint:
@@ -501,7 +551,11 @@ class Experiment:
             return key, None, dev[1], scene
         if cached is not None:
             return (key,) + cached + (scene,)
-        batch, meta = self.eval_collator([scene])
+        if self._collate_pool is not None:
+            batch, meta = self._collate_pool.collate(self.eval_collator,
+                                                     [scene])
+        else:
+            batch, meta = self.eval_collator([scene])
         if self.device.type == "cuda":
             batch = map_tensors(batch, torch.Tensor.pin_memory)
         if self.eval_cache_gb:
@@ -528,6 +582,12 @@ class Experiment:
                     self._eval_dev_cache_bytes += nb
         return batch
 
+    def close(self):
+        """Stop the collate processes, if any."""
+        if self._collate_pool is not None:
+            self._collate_pool.shutdown()
+            self._collate_pool = None
+
     def release_eval_cache(self):
         """Drop both eval caches (the device batches with them)."""
         with self._cache_lock:
@@ -542,7 +602,9 @@ class Experiment:
         threads while scene i's forward runs, and a 2-thread pool runs the
         host tails: `Predictor.pack` -> `to_host` -> `Predictor.tail` over
         the scene's memoised `SegmentVote`, or `Predictor.post` (the host
-        route with the DBSCAN split) under `general.use_dbscan`."""
+        route with the DBSCAN split) under `general.use_dbscan`. With
+        `data.prefetch_processes` > 0 the collates run in a CollatePool
+        (started at the first evaluation, stopped by `close`)."""
         cfg = self.cfg
         use_dbscan = bool(cfg.general.get("use_dbscan", False))
         g = cfg.general
@@ -558,6 +620,9 @@ class Experiment:
             separate_instances=bool(g.separate_instances))
         n = len(dataset) if max_scenes is None else min(max_scenes, len(dataset))
         num_workers = int(cfg.data.get("num_workers", 2) or 2)
+        if self.prefetch_processes and self._collate_pool is None:
+            self._collate_pool = CollatePool(self.prefetch_processes)
+        num_workers = min(max(num_workers, self.prefetch_processes), 4)
         preds, gts, bbox_preds, bbox_gt = {}, {}, {}, {}
         t0 = time.perf_counter()
         wait_s = forward_s = 0.0
@@ -565,7 +630,7 @@ class Experiment:
         try:
             prefetch = iter(Prefetcher(
                 lambda i: self._eval_load(dataset, i), self._eval_collate, n,
-                depth=2, num_workers=min(num_workers, 4)))
+                depth=2, num_workers=num_workers))
             futures = []
             for _ in range(n):
                 tw = time.perf_counter()

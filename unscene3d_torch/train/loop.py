@@ -13,6 +13,13 @@ f32. `Trainer.accum_train_step` is the JAX package's
 `build_accum_train_step` (gradients averaged over micro-batches, then one
 AdamW step); `Trainer.state_dict` / `load_state_dict` are the train state
 that train/checkpoint.py saves. Data parallelism is not ported yet.
+
+With the noise-robust loss on (`weight_noise_robust` != 0, batches collated
+with `build_triplane=True`) the JAX trainer asks the model for the voxel
+logits of every prediction set (`return_aux_vox`, loop.py:128). The port's
+criterion gathers the matched columns from the segment logits instead (the
+voxel logits are an exact take of them), so the trainer does not ask for
+that (L, N0, Q) stack: 4.8 GB in f32 at the batch-8 train batch.
 """
 
 from __future__ import annotations
@@ -210,12 +217,14 @@ def build_trainer(dtype=torch.float32, seed: int | None = 0,
                   total_steps: int = 10000, schedule: str = "onecycle",
                   weight_decay: float = 1e-2,
                   solver: str = "auction", device="cuda",
-                  **model_kw) -> Trainer:
+                  weight_noise_robust: float = 0.0, **model_kw) -> Trainer:
     """Mask3D(`backbone`) at conf/model/mask3d.yaml's widths with f32
     master params (seeded random unless seed is None), the set criterion of
     conf/loss/set_criterion.yaml (CE / mask BCE / dice weighted 2 / 5 / 2,
     eos 0.1, matcher costs the same) and AdamW of conf/optimizer/adamw.yaml
-    (lr 1e-4, weight decay 1e-2) under the onecycle schedule. Residual
+    (lr 1e-4, weight decay 1e-2) under the onecycle schedule;
+    `weight_noise_robust` weighs the tri-plane loss (its batches need
+    `build_triplane=True`), `model_kw` reach Mask3D. Residual
     blocks are rematerialised in the backward (models/backbone.py). The
     model and the optimizer state live on `device`: the GPU unless the
     caller asks for 'cpu' ('cuda' raises without a GPU)."""
@@ -228,6 +237,7 @@ def build_trainer(dtype=torch.float32, seed: int | None = 0,
                                solver=solver)
     criterion = SetCriterion(matcher, num_classes=model.num_classes,
                              eos_coef=0.1, weight_ce=2.0, weight_mask=5.0,
-                             weight_dice=2.0)
+                             weight_dice=2.0,
+                             weight_noise_robust=weight_noise_robust)
     return Trainer(model, criterion,
                    make_optimizer(lr, total_steps, schedule, weight_decay))
