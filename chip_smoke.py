@@ -34,9 +34,17 @@ bitwise repeatable with it and with dropout, card-vs-CPU parity of the
 loss), then the loss, dropout, pre-norm, the Mix3D merge collator and the
 eval collate pool through the entry point's functions, and one bench
 forward per decoder mode group (level embeddings + np features + max
-pooling + max_sample_size, learned queries, random queries).
+pooling + max_sample_size, learned queries, random queries). After the
+self-training round, data parallelism (`phase_train_dp`): the f32 step over
+NCCL at world size 1 bitwise the plain step, two ranks on the one card over
+gloo (4 of the train batch's scenes each) bitwise the mean-of-shards
+oracle computed on the card, with each rank's launches of kernels 1-5, its
+step and wait times and the all-reduce's time and bytes; and, only where
+the machine has two cards or more, the same over NCCL on two cards and the
+entry point on two cards, at f32 tolerance.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase train_dp     # that phase alone
 
 Needs one NVIDIA GPU and nvcc; exits nonzero without them. Phases print one
 line each; the line before the last is a JSON object of per-kernel numbers
@@ -162,6 +170,12 @@ SELF_TRAIN_EXPORT = [
     "general.save_for_freemask=true", "general.filter_out_instances=true",
     "general.eval_on_segments=true", "general.num_targets=3",
     "data/datasets=freemask"]
+# phase_train_dp: ranks on the one card (gloo), each with 8 / DP_RANKS of
+# the train batch's scenes; on two cards (NCCL) the state after a step
+# against the mean-of-shards oracle, relative to each tensor's max (the
+# same kernels on another card of the same kind: f32 summation order)
+DP_RANKS = 2
+DP_CARDS_TOL = 1e-4
 # the noise-robust tri-plane loss (phase_train_noise_robust): kernel 3 runs
 # the mask-feature pool, the target and the prediction projections (all
 # three planes in one call each), the per-scene loss sums, and in the
@@ -2434,6 +2448,375 @@ def phase_self_train(dev, card, f32_step_ms):
     return launches
 
 
+# ---------------------------------------------------------------- train_dp
+def train_shards(n):
+    """The train batch's 8 scenes (train_batch) as n shards of 8 / n,
+    each collated alone, as each rank collates its own (CPU tensors)."""
+    from unscene3d_torch.data.collate import FreeMaskCollator
+    from unscene3d_torch.data.synthetic import make_scene
+
+    scenes = [make_scene(**TRAIN_SCENE, seed=100 + i)
+              for i in range(TRAIN_BATCH)]
+    per = TRAIN_BATCH // n
+    collator = FreeMaskCollator(voxel_size=VOXEL, fps_queries=100)
+    return [collator(scenes[r * per:(r + 1) * per])[0] for r in range(n)]
+
+
+def _spawn_ranks(fn, args, nprocs, limit, what):
+    """fn(rank, *args) in nprocs spawned processes, joined under `limit`
+    seconds; raises when a rank fails, dies or runs past it."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + limit
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what}: a rank ran past {limit}s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def _dp_rank(rank, world, backend, coordinator, shards_path, out_path):
+    """One rank of phase_train_dp (a spawned process): the seeded f32
+    trainer (full widths) under a `backend` group, replicate, one warm-up
+    step and a restore, then the measured step on this rank's shard with
+    the rank's generator, kernels 1-5's launches counted around it. Saves
+    the state after the step, the launches and the times to
+    `out_path`.<rank>."""
+    import copy
+
+    import torch.distributed as dist
+
+    from unscene3d_torch.parallel.distributed import rank_seed
+    from unscene3d_torch.parallel.mesh import replicate
+    from unscene3d_torch.train.loop import build_trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=world, rank=rank, **kw)
+    try:
+        trainer = build_trainer(torch.float32, seed=0, device=dev,
+                                group=dist.group.WORLD)
+        replicate(trainer)
+        start = copy.deepcopy(trainer.state_dict())
+        batch = torch.load(shards_path, weights_only=False)[rank].to(dev)
+        seed = rank_seed(0, rank)
+        trainer.train_step(batch, torch.Generator(device=dev).manual_seed(seed))
+        trainer.load_state_dict(start)
+        grads_done = []
+        step_of = type(trainer).loss_and_grads
+
+        def timed(self, b, generator=None):
+            out = step_of(self, b, generator)
+            torch.cuda.synchronize()
+            grads_done.append(time.perf_counter())
+            return out
+
+        trainer.loss_and_grads = timed.__get__(trainer)
+        dist.barrier()
+        cnt = reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = trainer.train_step(batch,
+                                    torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launches = {k: fn.launches for k, fn in cnt.items()}
+        nbytes, ar_ms = trainer.last_all_reduce()
+        torch.save({"state": _flat_state(trainer.state_dict()),
+                    "losses": {k: v.cpu() for k, v in losses.items()},
+                    "launches": launches, "step_ms": 1e3 * (t1 - t0),
+                    "grads_ms": 1e3 * (grads_done[0] - t0),
+                    "wait_ms": 1e3 * (t1 - grads_done[0]),
+                    "allreduce_ms": ar_ms, "allreduce_bytes": nbytes},
+                   f"{out_path}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _flat_state(state):
+    """A Trainer.state_dict() as CPU tensors by name: the model's
+    state_dict (parameters, BN statistics), AdamW's moments, the step and
+    the count."""
+    flat = {f"model.{k}": v for k, v in state["model"].items()}
+    opt = state["optimizer"]
+    flat.update({f"mu.{i}": m for i, m in enumerate(opt["mu"])})
+    flat.update({f"nu.{i}": v for i, v in enumerate(opt["nu"])})
+    flat = {k: v.to("cpu", copy=True) for k, v in flat.items()}
+    flat["count"] = torch.tensor([state["step"], opt["count"]])
+    return flat
+
+
+def _mean_of_shards(trainer, batches, seeds):
+    """The mean-of-shards step in this process on `trainer`: each batch's
+    loss_and_grads with a generator of its seed on the trainer's device
+    and its BN statistics updated from the same start, the gradients and
+    the BN statistics summed and divided by the batch count, one AdamW
+    step. Returns (the flat state after the step, the mean float
+    losses)."""
+    dev = trainer.params[0].device
+    stats_of = [t for bn in trainer._bns for t in (bn.mean, bn.var)]
+    start = [t.clone() for t in stats_of]
+    grads = stats = None
+    losses = []
+    for batch, seed in zip(batches, seeds):
+        with torch.no_grad():
+            for t, v in zip(stats_of, start):
+                t.copy_(v)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        ls, g = trainer.loss_and_grads(batch.to(dev), gen)
+        for bn in trainer._bns:
+            bn.update_running_stats()
+        s = [t.clone() for t in stats_of]
+        grads = g if grads is None else torch._foreach_add(grads, g)
+        stats = s if stats is None else torch._foreach_add(stats, s)
+        losses.append(ls)
+        del g
+    n = float(len(batches))
+    torch._foreach_div_(grads, n)
+    torch._foreach_div_(stats, n)
+    with torch.no_grad():
+        for t, v in zip(stats_of, stats):
+            t.copy_(v)
+    trainer.optimizer.step(trainer.params, grads)
+    trainer.step += 1
+    mean = {k: sum(ls[k] for ls in losses) / n for k, v in losses[0].items()
+            if v.is_floating_point()}
+    return _flat_state(trainer.state_dict()), mean
+
+
+def _differing(got, want, tol=None):
+    """Names whose tensors differ: bitwise (tol None), else by more than
+    tol of the tensor's largest |want|."""
+    out = []
+    for k, w in want.items():
+        g = got[k]
+        if tol is None:
+            if not torch.equal(g, w):
+                out.append(k)
+        elif w.is_floating_point():
+            scale = max(w.abs().max().item(), 1e-30)
+            if (g - w).abs().max().item() > tol * scale:
+                out.append(k)
+        elif not torch.equal(g, w):
+            out.append(k)
+    return out
+
+
+def phase_train_dp(dev, card, host_batch):
+    """Data parallelism of the self-training round's step (train/loop.py
+    under a process group):
+
+      * world size 1 over NCCL: the f32 step on the train batch is bitwise
+        Trainer.train_step from the same state;
+      * DP_RANKS ranks on this one card over gloo (NCCL refuses two ranks on
+        one device), each with 8 / DP_RANKS of the train batch's scenes, f32
+        at full widths from seeded random weights: the state after one step
+        (every parameter, BN statistic and AdamW moment) bitwise the
+        mean-of-shards oracle computed here on the card, kernels 1-5's
+        launches per rank, each rank's step and wait ms and the
+        all-reduce's ms and bytes. The ranks time-share the card, so their
+        step time is no scaling number;
+      * where the machine has two cards or more: the same ranks over NCCL
+        on two cards against the same oracle, and the entry point
+        (`python -m unscene3d_torch.main_instance_segmentation`, one rank
+        per card) held to its own mean-of-shards oracle, both at f32
+        tolerance. On one card this part does not run and says so.
+
+    Returns kernels 1-5's launches of rank 0's step (asserted equal on
+    every rank)."""
+    import copy
+    import tempfile
+
+    import torch.distributed as dist
+
+    from unscene3d_torch.parallel.distributed import free_port, rank_seed
+    from unscene3d_torch.train.loop import build_trainer
+
+    t_phase = time.perf_counter()
+    # world size 1 over NCCL
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            device_id=dev)
+    try:
+        trainer = build_trainer(torch.float32, seed=0, device=dev)
+        batch = host_batch.to(dev)
+        start = copy.deepcopy(trainer.state_dict())
+        runs = []
+        for group in (None, dist.group.WORLD):
+            trainer.load_state_dict(start)
+            trainer.group = group
+            losses = trainer.train_step(
+                batch, torch.Generator(device=dev).manual_seed(0))
+            runs.append((_flat_state(trainer.state_dict()), losses))
+        nbytes, nccl_ms = trainer.last_all_reduce()
+    finally:
+        dist.destroy_process_group()
+    diff = _differing(runs[1][0], runs[0][0])
+    diff += [f"loss {k}" for k in runs[0][1]
+             if not torch.equal(runs[0][1][k], runs[1][1][k])]
+    if diff:
+        raise AssertionError(f"NCCL world size 1: the step differs from "
+                             f"Trainer.train_step in {diff[:8]}")
+    log(f"train_dp NCCL world size 1, f32 train batch: bitwise EQUAL to "
+        f"Trainer.train_step ({len(runs[0][0])} state tensors and the "
+        f"losses); all-reduce of one rank {nccl_ms:.3f} ms, {nbytes} bytes "
+        f"({nbytes / 4e6:.1f} M f32)")
+    del trainer, batch, start, runs
+    torch.cuda.empty_cache()
+
+    shards = train_shards(DP_RANKS)
+    with tempfile.TemporaryDirectory() as tmp:
+        shards_path = f"{tmp}/shards.pt"
+        torch.save(shards, shards_path)
+        t0 = time.perf_counter()
+        _spawn_ranks(_dp_rank, (DP_RANKS, "gloo",
+                                f"localhost:{free_port()}", shards_path,
+                                f"{tmp}/gloo"),
+                     DP_RANKS, 300, "train_dp gloo")
+        t_ranks = time.perf_counter() - t0
+        outs = [torch.load(f"{tmp}/gloo.{r}", weights_only=False)
+                for r in range(DP_RANKS)]
+        want, want_losses = _mean_of_shards(
+            build_trainer(torch.float32, seed=0, device=dev), shards,
+            [rank_seed(0, r) for r in range(DP_RANKS)])
+        for r, out in enumerate(outs):
+            diff = _differing(out["state"], want)
+            diff += [f"loss {k}" for k, v in want_losses.items()
+                     if not torch.equal(out["losses"][k], v.cpu())]
+            if diff:
+                raise AssertionError(f"train_dp rank {r}: {len(diff)} "
+                                     f"tensors differ from the mean of "
+                                     f"shards, first {diff[:8]}")
+            for k, per in PER_TRAIN_STEP.items():
+                if out["launches"][k] != per:
+                    raise AssertionError(f"train_dp rank {r} {k}: "
+                                         f"{out['launches'][k]} launches, "
+                                         f"expected {per} per step")
+            log(f"train_dp rank {r}/{DP_RANKS} (gloo, one card, "
+                f"{TRAIN_BATCH // DP_RANKS} scenes): step "
+                f"{out['step_ms']:.1f} ms (forward + backward "
+                f"{out['grads_ms']:.1f} ms, then wait + all-reduce + AdamW "
+                f"{out['wait_ms']:.1f} ms), all-reduce {out['allreduce_ms']:.1f}"
+                f" ms (CUDA events) of {out['allreduce_bytes']} bytes; loss "
+                f"{out['losses']['total'].item():.4f}; launches "
+                f"{out['launches']}")
+        log(f"train_dp: {DP_RANKS} ranks bitwise EQUAL to the mean-of-shards "
+            f"oracle on the card ({len(want)} state tensors: parameters, BN "
+            f"statistics, AdamW moments, step) and to each other; spawn + "
+            f"steps {t_ranks:.1f}s. The ranks time-share one card: their "
+            f"step time is no scaling number; on {card}")
+        if outs[1]["launches"] != outs[0]["launches"]:
+            raise AssertionError("train_dp: the ranks' launches differ")
+        if torch.cuda.device_count() >= 2:
+            _train_dp_cards(tmp, shards_path, want, card)
+        else:
+            log(f"train_dp: NCCL across cards NOT RUN: this machine has "
+                f"{torch.cuda.device_count()} card, and NCCL refuses two "
+                "ranks on one device")
+    log(f"phase train_dp: {time.perf_counter() - t_phase:.1f}s")
+    return outs[0]["launches"]
+
+
+def _train_dp_cards(tmp, shards_path, want, card):
+    """Two ranks over NCCL on cards 0 and 1 against the same oracle, then
+    the entry point on two cards against its own (f32 tolerance)."""
+    from unscene3d_torch.parallel.distributed import free_port
+
+    _spawn_ranks(_dp_rank, (2, "nccl", f"localhost:{free_port()}",
+                            shards_path, f"{tmp}/nccl"),
+                 2, 300, "train_dp nccl")
+    for r in range(2):
+        out = torch.load(f"{tmp}/nccl.{r}", weights_only=False)
+        diff = _differing(out["state"], want, DP_CARDS_TOL)
+        if diff:
+            raise AssertionError(f"train_dp NCCL rank {r}: {diff[:8]} off "
+                                 "the mean of shards")
+        bitwise = not _differing(out["state"], want)
+        log(f"train_dp NCCL rank {r} on card {r}: step "
+            f"{out['step_ms']:.1f} ms (forward + backward "
+            f"{out['grads_ms']:.1f}, wait + all-reduce + AdamW "
+            f"{out['wait_ms']:.1f}), NCCL all-reduce "
+            f"{out['allreduce_ms']:.3f} ms of {out['allreduce_bytes']} "
+            f"bytes; state within {DP_CARDS_TOL} of the oracle "
+            f"({'bitwise' if bitwise else 'not bitwise'}); on {card}")
+    _train_dp_entry(tmp)
+
+
+def _train_dp_entry(tmp):
+    """The entry point on two cards (it spawns one rank per card) on the
+    self-train scenes for one step, then the same step rebuilt here: each
+    rank's scene draws (the shared sampler, the rank's own data set and
+    collator seeds), its shard's gradients with its generator, the mean, one
+    AdamW step; rank 0's checkpoint held to it at f32 tolerance."""
+    import os
+    import subprocess
+
+    import unscene3d_torch.parallel.distributed as dist_mod
+    from unscene3d_torch.main_instance_segmentation import (build_experiment,
+                                                            get_parameters)
+    from unscene3d_torch.parallel.distributed import rank_seed
+    from unscene3d_torch.train import checkpoint as ckpt
+    from unscene3d_torch.train.experiment import _EpochSampler
+
+    _write_self_train_data(f"{tmp}/data")
+    data = [f"general.data_dir={tmp}/data",
+            f"data.datasets.validation_dataset.data_dir={tmp}/data",
+            f"data.datasets.test_dataset.data_dir={tmp}/data"]
+    argv = SELF_TRAIN_ROUND + data + [f"general.save_dir={tmp}/entry",
+                                      "trainer.max_epochs=1"]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0,1")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          "unscene3d_torch.main_instance_segmentation",
+                          *argv], env=env, capture_output=True, text=True,
+                         timeout=600)
+    t_run = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"entry point on 2 cards: rc {res.returncode}"
+                             f"\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    saved = ckpt.load_state(f"{tmp}/entry/checkpoints")
+    # the same step rebuilt in this process, rank by rank
+    cfg = get_parameters(argv + [f"general.save_dir={tmp}/rebuilt"])
+    seed = int(cfg.general.seed)
+    batches, trainer = [], None
+    real = dist_mod.rank, dist_mod.world_size
+    try:
+        for r in range(2):
+            dist_mod.rank, dist_mod.world_size = (lambda r=r: r), (lambda: 2)
+            exp = build_experiment(cfg, "cuda:0")
+            sampler = _EpochSampler(len(exp.train_dataset),
+                                    np.random.RandomState(seed))
+            exp.collator.reseed(rank_seed(seed, r))
+            ids = exp._draw_step_ids(sampler)
+            batches.append(exp._collate_step(exp._load_scenes(ids))[0])
+            if r == 0:
+                trainer = exp.trainer
+            exp.close()
+    finally:
+        dist_mod.rank, dist_mod.world_size = real
+    want, _ = _mean_of_shards(trainer, batches,
+                              [rank_seed(seed, r) for r in range(2)])
+    diff = _differing(_flat_state(saved), want, DP_CARDS_TOL)
+    if diff:
+        raise AssertionError(f"entry point on 2 cards: {diff[:8]} off the "
+                             "mean of shards")
+    written = sorted(os.listdir(f"{tmp}/entry"))
+    log(f"train_dp entry point on 2 cards (NCCL, {TRAIN_BATCH} scenes, "
+        f"4 a rank): {t_run:.1f}s, rank 0's checkpoint within "
+        f"{DP_CARDS_TOL} of the mean-of-shards step rebuilt here; wrote "
+        f"{written}")
+
+
 def _triplane_planes(tri, valid):
     """Pixels of each plane and the voxels a pixel holds (median, max), from
     the host maps: each plane's pixels are one range of ids."""
@@ -2805,12 +3188,19 @@ def _eval_split(ev):
             f"exports {ev['tail_exports_s']:.2f}s)")
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     dev, card = phase_device()
     phase_build()
+    if argv == ["--phase", "train_dp"]:
+        # the data-parallel phase alone (on a machine of several cards too)
+        phase_train_dp(dev, card, train_batch())
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     from unscene3d_torch.data.collate import FreeMaskCollator
     from unscene3d_torch.data.synthetic import make_scene
 
@@ -2862,6 +3252,8 @@ def main() -> int:
     phase_train_parity(dev)
     torch.cuda.empty_cache()
     launches["self_train"] = phase_self_train(dev, card, f32_step_ms)
+    torch.cuda.empty_cache()
+    launches["train_dp"] = phase_train_dp(dev, card, tbatch_host)
     torch.cuda.empty_cache()
     launches["train_noise_robust"], nr_res = phase_train_noise_robust(
         dev, card, tbatch_host)
@@ -2919,4 +3311,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -295,6 +295,10 @@ def test_port_imports_no_jax():
         "f = load_2d_model('DinoNet')(device='cpu')(np.random.rand(1, 24, 32,"
         " 3))\n"
         "assert tuple(f.shape) == (1, 24, 32, 384)\n"
+        "from unscene3d_torch import main_instance_segmentation as entry\n"
+        "from unscene3d_torch.parallel import distributed, mesh\n"
+        "assert distributed.initialize_from_env('cpu') is False\n"
+        "assert entry.local_ranks(cfg) == 1\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax',"
         " 'jaxlib', 'unscene3d_tpu', 'benchmarks')]\n"
         "assert not bad, bad\n"

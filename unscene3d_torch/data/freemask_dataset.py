@@ -13,9 +13,11 @@ Byte-compatible with the reference's on-disk formats
 Returns plain scene dicts for FreeMaskCollator. One `RandomState` (from
 `seed`) serves the augmentations and the re-draw of a scene left with no
 mask, in the JAX package's order, so both packages give the same scene for
-the same index and state. `merge_found` holds the scene ids whose
-self-train export the merge found. A synthetic oracle variant generates
-GT-derived scenes on the fly (the role of scannet_freemask_oracle).
+the same index and state; `reseed(seed)` restarts it (a data-parallel
+rank other than 0 draws from its own seed, train/experiment.py).
+`merge_found` holds the scene ids whose self-train export the merge found.
+A synthetic oracle variant generates GT-derived scenes on the fly (the role
+of scannet_freemask_oracle).
 """
 
 from __future__ import annotations
@@ -81,7 +83,8 @@ class FreeMaskDataset:
         self.num_self_train_data = num_self_train_data
         self.max_num_gt_instances = max_num_gt_instances
         self.augment = ("train" in mode) if augment is None else augment
-        self.rng = np.random.RandomState(seed)
+        self.seed = int(seed)
+        self.reseed(self.seed)
         # self-train merge: the scene ids whose export was found, and the
         # instances it added over all loads
         self.merge_found: set = set()
@@ -104,6 +107,10 @@ class FreeMaskDataset:
         db_path = os.path.join(data_dir, f"{self._db_mode()}_database.yaml")
         with open(db_path) as f:
             self.data = yaml.safe_load(f)
+
+    def reseed(self, seed: int) -> None:
+        """Restart the draws (augmentations, re-draws) from `seed`."""
+        self.rng = np.random.RandomState(seed)
 
     def _db_mode(self):
         return {"train": "train", "validation": "validation", "test": "validation"}.get(
@@ -237,8 +244,14 @@ class SyntheticFreeMaskDataset:
         self.extent = float(extent)
         self.base_seed = seed + {"train": 0, "validation": 10_000, "test": 20_000}.get(mode, 0)
         self.augment = ("train" in mode) if augment is None else augment
-        self.rng = np.random.RandomState(self.base_seed)
+        self.seed = self.base_seed
+        self.reseed(self.seed)
         self.augmentation = TrainAugmentation()
+
+    def reseed(self, seed: int) -> None:
+        """Restart the augmentation draws from `seed` (the scenes
+        themselves come from `base_seed` + index)."""
+        self.rng = np.random.RandomState(seed)
 
     def __len__(self):
         return self.num_scenes

@@ -17,6 +17,23 @@ the override `general.device=cpu` asks for the CPU:
 `general.train_mode=false` runs the test and, with
 `general.save_for_freemask=true`, exports the predictions that the next
 round's `load_self_train_data` merges.
+
+Training is data-parallel on every visible card (the JAX package's rule,
+unscene3d_tpu/train/experiment.py:331): on a host with K > 1 cards whose
+`data.batch_size` divides by K times the process count, the entry point
+builds the CUDA kernels and the native library once, then spawns K ranks,
+each on `cuda:<local_rank>`, over NCCL (parallel/distributed.py); narrow
+the cards with CUDA_VISIBLE_DEVICES. Across hosts each host runs this
+command under the JAX package's three variables:
+
+  UNSCENE3D_COORDINATOR=host0:8476 UNSCENE3D_NUM_PROCESSES=2 \
+  UNSCENE3D_PROCESS_ID=<0..1> python -m unscene3d_torch.main_instance_segmentation ...
+
+and with `general.device=cpu` each process is one rank over gloo (the
+counterpart of scripts/multihost_smoke.sh). Otherwise one rank runs, as
+before. A rank that fails fails the run (a nonzero exit); nothing falls
+back to fewer ranks or to the CPU. The test and the export run on process
+0 alone, on one device, as the JAX evaluation does.
 """
 
 from __future__ import annotations
@@ -67,8 +84,8 @@ def build_experiment(cfg, device=None):
                       collator, eval_collator=eval_collator, device=device)
 
 
-def train(cfg):
-    exp = build_experiment(cfg)
+def train(cfg, device=None):
+    exp = build_experiment(cfg, device)
     try:
         return exp.fit(
             seed=int(cfg.general.seed),
@@ -90,11 +107,71 @@ def test(cfg):
         exp.close()
 
 
+def local_ranks(cfg) -> int:
+    """The ranks this process runs: every visible card where training runs
+    on CUDA on more than one and `data.batch_size` divides by the cards
+    times UNSCENE3D_NUM_PROCESSES; else 1."""
+    import torch
+
+    from unscene3d_torch.parallel.distributed import env_processes
+
+    device = torch.device(cfg.general.get("device") or "cuda")
+    if device.type != "cuda" or device.index is not None:
+        return 1
+    cards = torch.cuda.device_count()
+    nproc, _ = env_processes()
+    if cards > 1 and int(cfg.data.batch_size) % (cards * nproc) == 0:
+        return cards
+    return 1
+
+
+def _train_rank(local_rank, argv, ranks, coordinator):
+    """One spawned rank on `cuda:<local_rank>`."""
+    from unscene3d_torch.parallel import distributed as dp
+
+    cfg = get_parameters(argv)
+    device = f"cuda:{local_rank}"
+    dp.initialize_from_env(device, ranks, coordinator)
+    try:
+        train(cfg, device)
+    finally:
+        dp.shutdown()
+
+
 def main(argv=None):
-    cfg = get_parameters(sys.argv[1:] if argv is None else argv)
-    if cfg.general.train_mode:
+    """Train (returning the trainer; None from the parent of spawned
+    ranks) or test, as `general.train_mode` says."""
+    from unscene3d_torch.parallel import distributed as dp
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    cfg = get_parameters(argv)
+    nproc, pid = dp.env_processes()
+    if not cfg.general.train_mode:
+        if pid:
+            print(f"[main] process {pid}: the test runs on process 0")
+            return None
+        return test(cfg)
+    ranks = local_ranks(cfg)
+    if ranks > 1:
+        import torch.multiprocessing as mp
+
+        from unscene3d_torch import native
+        from unscene3d_torch.ops import _build
+
+        native.build()
+        _build.build()
+        coordinator = (None if nproc > 1
+                       else f"localhost:{dp.free_port()}")
+        mp.spawn(_train_rank, args=(argv, ranks, coordinator), nprocs=ranks,
+                 join=True)
+        return None
+    outside = dp.group() is None
+    dp.initialize_from_env(cfg.general.get("device") or "cuda")
+    try:
         return train(cfg)
-    return test(cfg)
+    finally:
+        if outside:
+            dp.shutdown()
 
 
 if __name__ == "__main__":

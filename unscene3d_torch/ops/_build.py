@@ -5,6 +5,9 @@ process per source, all started together, and linked into one shared
 library with a plain C interface under the repository's `build/` directory
 (gitignored), then loaded with ctypes. The file name carries a hash of the
 sources and flags, so an edit rebuilds and a warm tree reuses the library.
+The build runs under a file lock in `build/`: processes that start on a
+fresh tree together (the ranks of a data-parallel run) compile once, and
+the others wait for that library.
 Every pointer and the stream pass as `c_void_p`; each C entry point returns
 `cudaGetLastError()` after its launch, and `check` raises on a nonzero
 code. A failed build raises: there is no fallback.
@@ -13,6 +16,7 @@ code. A failed build raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -125,6 +129,22 @@ def _compile(srcs: list[str], out: str) -> None:
     os.replace(tmp, out)
 
 
+def build() -> str:
+    """Path of the kernel library, compiled unless a build with the same
+    hash exists, under a file lock (one process compiles, the others wait
+    and find its library); raises when nvcc fails."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    path = _lib_path(srcs)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "kernels.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        if not os.path.exists(path):
+            _compile(srcs, path)
+    return path
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, compiled on first use; raises when it cannot be
     built or loaded."""
@@ -132,13 +152,7 @@ def load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        srcs = sources()
-        if not srcs:
-            raise RuntimeError(f"no CUDA sources under {CSRC}")
-        path = _lib_path(srcs)
-        if not os.path.exists(path):
-            _compile(srcs, path)
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(build())
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -15,6 +15,12 @@ contract of unscene3d_tpu/train/checkpoint.py (orbax there):
     whose name exists in both and whose shape matches come from the
     checkpoint, the rest (a class head that `num_targets` resized) and the
     optimizer state and step stay the trainer's own (fresh).
+
+Under a data-parallel process group only rank 0 writes (`save_checkpoint`
+returns the path on every rank; the caller's barrier orders the ranks);
+every rank restores the same files, so `restore_checkpoint` and
+`restore_partial` leave every rank with the same state, which
+parallel/mesh.py:replicate asserts.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import os
 import shutil
 
 import torch
+
+from unscene3d_torch.parallel.distributed import is_main
 
 _STATE_FILE = "state.pt"
 
@@ -39,9 +47,11 @@ def _to_cpu(obj):
 
 def save_checkpoint(ckpt_dir: str, trainer, step: int | None = None) -> str:
     """Save `trainer.state_dict()` as step `step` (default: the trainer's);
-    returns the checkpoint's directory."""
+    returns the checkpoint's directory. Writes on rank 0 only."""
     ckpt_dir = os.path.abspath(ckpt_dir)
     step = int(trainer.step) if step is None else int(step)
+    if not is_main():
+        return os.path.join(ckpt_dir, str(step))
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, str(step))
     tmp = os.path.join(ckpt_dir, f".{step}.tmp-{os.getpid()}")

@@ -1,5 +1,5 @@
 """Experiment orchestration of the self-training round (the port of
-unscene3d_tpu/train/experiment.py, one device).
+unscene3d_tpu/train/experiment.py, one device per rank).
 
 The reference's InstanceSegmentation duties (trainer/trainer.py:44-998):
 epochs of train steps over prefetched collates with the onecycle schedule
@@ -18,10 +18,12 @@ Left out, as what the TPU needed and the port does not:
     `static_shapes`, `pad_rebuilds`, `_spill_floors`, the collates' `pads`
     argument): the port compiles nothing, and its kernels take any row
     count, so each batch is collated at its own size;
-  * the mesh and `global_batch_from_local`: one device;
+  * the mesh, `stack_shards` and `global_batch_from_local`: each rank
+    (parallel/distributed.py) loads, collates and feeds its own shard;
   * `jax.random` keys: one torch.Generator on the device, seeded from the
     seed of `fit`, draws the point samples of every step;
-  * `enable_compilation_cache` and `initialize_from_env`;
+  * `enable_compilation_cache` (the entry point calls
+    `initialize_from_env`);
   * the eval-collator swap on `win_levels` (experiment.py:306-319): the
     window engine is the TPU's; without an eval collator, a collator with
     crops or merges gets a plain one for eval, since eval scores whole
@@ -33,6 +35,24 @@ loads of a prefetched epoch run in index order, with the collator's own
 draws (`prepare`: MergeCollator's merge, restarted from the seed of `fit`
 by `reseed`), so one seed gives the same augmentation and merge draws
 whatever the number of worker threads.
+
+Data parallelism. Under a process group of N ranks (the entry point forms
+it, one rank per card) each step takes `data.batch_size / N` scenes on
+every rank; a batch that does not divide raises ValueError, as does
+gradient accumulation. Every rank draws the same global scene ids from the
+shared sampler, N lists of one shard each, and keeps its own
+(`local_slice`), as experiment.py:561-577 of the JAX package does; the
+trainer averages the gradients, losses and BatchNorm statistics
+(train/loop.py). Unlike the JAX package, whose single process collates all
+shards with one data set and one collator (`collate_shards`, one draw
+order), each rank draws its augmentations, its collator's draws and its
+point samples from its own seed, `rank_seed(seed, rank)`: rank 0 keeps
+the seed itself, so a run of one rank is the single-device run bitwise,
+and the ranks' draws differ from the JAX package's. Only rank 0 logs,
+writes `checkpoints/` and `best/`, and runs the periodic validation (the
+JAX package evaluates on one device too); the other ranks wait at a
+barrier, under the process group's timeout (distributed.py:TIMEOUT).
+`fit_stats` gains the all-reduce's bytes and milliseconds per step.
 
 `data.prefetch_processes > 0` collates the evaluation's scenes in a pool of
 spawned processes (`CollatePool`, the JAX package's), which never touch the
@@ -64,6 +84,8 @@ from unscene3d_torch.eval.instance_eval import evaluate_instances
 from unscene3d_torch.eval.postprocess import SegmentVote
 from unscene3d_torch.inference import Predictor
 from unscene3d_torch.models.weights import init_random_
+from unscene3d_torch.parallel import distributed as dp
+from unscene3d_torch.parallel.mesh import replicate
 from unscene3d_torch.runtime import resolve_device
 from unscene3d_torch.train.checkpoint import (latest_step, restore_checkpoint,
                                               restore_partial,
@@ -126,7 +148,11 @@ def _logger_kinds():
 
 def build_loggers(cfg) -> MultiLogger:
     """Instantiate the `logging` config group (conf/logging/*.yaml; each
-    entry maps onto a backend by `name`, CSV where the name is unknown)."""
+    entry maps onto a backend by `name`, CSV where the name is unknown).
+    Rank 0 alone logs: the other ranks of a process group get no
+    logger."""
+    if not dp.is_main():
+        return MultiLogger([])
     entries = []
     try:
         entries = list(cfg.logging.loggers)
@@ -369,6 +395,12 @@ class Experiment:
         self.logger = build_loggers(cfg)
 
         self.batch_size = int(cfg.data.batch_size)
+        self.rank, self.world = dp.rank(), dp.world_size()
+        if self.batch_size % self.world:
+            raise ValueError(f"data.batch_size={self.batch_size} does not "
+                             f"divide by the {self.world} ranks")
+        self.shard_scenes = self.batch_size // self.world
+        group = dp.group()
         self.num_workers = int(cfg.data.get("num_workers", 1) or 1)
         # > 0: evaluation collates in that many spawned processes
         self.prefetch_processes = int(cfg.data.get("prefetch_processes", 0)
@@ -386,6 +418,13 @@ class Experiment:
         self._eval_dev_cache: dict = {}
         self._eval_dev_cache_bytes = 0
         self.accum_steps = int(cfg.general.get("accumulate_grad_batches", 1))
+        if self.accum_steps > 1 and group is not None:
+            raise ValueError(
+                "accumulate_grad_batches > 1 is not composed with data "
+                "parallelism: lower data.batch_size or run one rank")
+        if self.rank:
+            # the rank's own augmentation draws
+            train_dataset.reseed(dp.rank_seed(train_dataset.seed, self.rank))
         steps_per_epoch = max(len(train_dataset) // self.batch_size, 1)
         total_steps = steps_per_epoch * int(cfg.trainer.max_epochs)
         self.steps_per_epoch = steps_per_epoch
@@ -398,7 +437,7 @@ class Experiment:
         )
         init_random_(model.float(), int(cfg.general.seed))
         model.to(self.device)
-        self.trainer = Trainer(model, criterion, opt)
+        self.trainer = Trainer(model, criterion, opt, group=group)
         self.fit_stats: dict = {}
         self.eval_stats: dict = {}
         self.last_results: dict | None = None
@@ -406,11 +445,13 @@ class Experiment:
     # --------------------------------------------------------------- batches
     def _draw_step_ids(self, sampler: _EpochSampler) -> list[list[int]]:
         """One step's scene ids: one list, or one per micro-batch under
-        gradient accumulation."""
+        gradient accumulation; under a process group the global draw of
+        one list per rank, of which this rank keeps its own."""
         if self.accum_steps > 1:
             per_micro = max(self.batch_size // self.accum_steps, 1)
             return [sampler.next(per_micro) for _ in range(self.accum_steps)]
-        return [sampler.next(self.batch_size)]
+        return dp.local_slice([sampler.next(self.shard_scenes)
+                               for _ in range(self.world)])
 
     def _load_scenes(self, step_ids: list[list[int]]) -> list[list[dict]]:
         """One step's scenes, through the collator's draws (`prepare`):
@@ -433,25 +474,35 @@ class Experiment:
         """Train from the model's weights (or `checkpoint`'s, shape-tolerant,
         or with `resume` the exact state of `checkpoints/`) for the epochs
         left of `max_epochs` (default trainer.max_epochs); returns the
-        trainer."""
+        trainer. Under a process group every rank restores the same files,
+        `replicate` asserts the ranks' states equal, and rank 0 alone logs,
+        saves and validates while the others wait at the epoch's end."""
         cfg = self.cfg
         max_epochs = int(cfg.trainer.max_epochs) if max_epochs is None else max_epochs
+        main = self.rank == 0
+        # the scene-id stream is every rank's; the draws are the rank's own
         rng_np = np.random.RandomState(seed)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.collator.reseed(seed)
+        own_seed = dp.rank_seed(seed, self.rank)
+        gen = torch.Generator(device=self.device).manual_seed(own_seed)
+        self.collator.reseed(own_seed)
         trainer = self.trainer
         ckpt_dir = os.path.join(self.save_dir, "checkpoints")
         if checkpoint:
-            restore_partial(checkpoint, trainer)
-            print(f"[exp] partial-restored from {checkpoint}")
+            restore_partial(checkpoint, trainer, verbose=main)
+            if main:
+                print(f"[exp] partial-restored from {checkpoint}")
         elif resume and latest_step(ckpt_dir) is not None:
             restore_checkpoint(ckpt_dir, trainer)
-            print(f"[exp] resumed from step {trainer.step}")
+            if main:
+                print(f"[exp] resumed from step {trainer.step}")
+        if trainer.group is not None:
+            replicate(trainer)
         best_ap = -1.0
         check_every = int(cfg.trainer.get("check_val_every_n_epoch", 50))
         start_epoch = trainer.step // self.steps_per_epoch
         stats = self.fit_stats = {"step_ms": [], "wait_ms": [],
-                                  "epoch_s": [], "checkpoint_s": []}
+                                  "epoch_s": [], "checkpoint_s": [],
+                                  "allreduce_ms": [], "allreduce_bytes": []}
 
         sampler = _EpochSampler(len(self.train_dataset), rng_np)
         for epoch in range(start_epoch, max_epochs):
@@ -477,8 +528,17 @@ class Experiment:
                 t_end = time.perf_counter()
                 stats["wait_ms"].append(1e3 * (t_step - t_wait))
                 stats["step_ms"].append(1e3 * (t_end - t_step))
+                comm = trainer.last_all_reduce()
+                if comm is not None:
+                    stats["allreduce_bytes"].append(comm[0])
+                    stats["allreduce_ms"].append(comm[1])
             dt = time.time() - t0
             stats["epoch_s"].append(dt)
+            if not main:
+                # rank 0 logs, saves and validates; the step's state is
+                # every rank's
+                dp.barrier()
+                continue
             total = float(losses["total"])
             print(f"[epoch {epoch}] loss={total:.4f} "
                   f"({dt:.1f}s, {self.steps_per_epoch} steps)")
@@ -534,6 +594,7 @@ class Experiment:
                     best_ap = ap50
                     save_checkpoint(os.path.join(self.save_dir, "best"),
                                     trainer)
+            dp.barrier()
         return trainer
 
     # ------------------------------------------------------------------ eval

@@ -12,7 +12,21 @@ flax casts them); losses, BatchNorm statistics and the optimizer state stay
 f32. `Trainer.accum_train_step` is the JAX package's
 `build_accum_train_step` (gradients averaged over micro-batches, then one
 AdamW step); `Trainer.state_dict` / `load_state_dict` are the train state
-that train/checkpoint.py saves. Data parallelism is not ported yet.
+that train/checkpoint.py saves.
+
+Data parallelism (the JAX `_step_core(..., axis="data")` under
+`shard_map`): a Trainer given a process group (`group`, one rank per card,
+parallel/distributed.py) takes each rank's gradients on its own batch
+shard with its own generator, then averages the gradients, the float
+losses and every BatchNorm's updated running statistics over the ranks in
+one all-reduce of one flat f32 buffer (the JAX step's `lax.pmean` of
+grads, losses and `new_bs`: each shard's own batch statistics, then the
+mean; there is no SyncBatchNorm, as the JAX package has none), then takes
+one AdamW step. It is an explicit all-reduce and not
+`DistributedDataParallel`: the gradients come from `torch.autograd.grad`,
+which DDP's hooks never see. At world size 1 the step is bitwise the step
+without a group. Gradient accumulation under a group raises, as the JAX
+package's `Experiment` does.
 
 With the noise-robust loss on (`weight_noise_robust` != 0, batches collated
 with `build_triplane=True`) the JAX trainer asks the model for the voxel
@@ -25,8 +39,10 @@ that (L, N0, Q) stack: 4.8 GB in f32 at the batch-8 train batch.
 from __future__ import annotations
 
 import math
+import time
 
 import torch
+import torch.distributed as dist
 
 from unscene3d_torch.inference import build_mask3d
 from unscene3d_torch.losses.criterion import SetCriterion
@@ -140,7 +156,8 @@ class Trainer:
     live on one device. `step` counts the optimizer steps taken (the JAX
     TrainState's `step`)."""
 
-    def __init__(self, model, criterion: SetCriterion, optimizer: AdamW):
+    def __init__(self, model, criterion: SetCriterion, optimizer: AdamW,
+                 group=None):
         self.model = model.train()
         self.criterion = criterion
         self.optimizer = optimizer
@@ -148,6 +165,9 @@ class Trainer:
                      if isinstance(m, SparseBatchNorm)]
         self.optimizer.init(self.params)
         self.step = 0
+        # the data-parallel process group (None: one device)
+        self.group = group
+        self._comm = None       # the last all-reduce: (bytes, timer)
 
     @property
     def params(self) -> list[torch.Tensor]:
@@ -168,13 +188,52 @@ class Trainer:
 
     def train_step(self, batch, generator=None) -> dict:
         """One step: forward, criterion, backward, AdamW, BN running stats.
-        Returns the criterion's loss dict."""
+        Returns the criterion's loss dict. Under a process group the
+        gradients, the float losses and the BN running statistics are the
+        means over the ranks before the AdamW step (`matched_q` stays the
+        rank's own)."""
         losses, grads = self.loss_and_grads(batch, generator)
-        self.optimizer.step(self.params, grads)
         for bn in self._bns:
             bn.update_running_stats()
+        if self.group is not None:
+            grads, losses = self._all_reduce_mean(grads, losses)
+        self.optimizer.step(self.params, grads)
         self.step += 1
         return losses
+
+    def _all_reduce_mean(self, grads, losses):
+        """The ranks' mean of the gradients, the float losses and every
+        BatchNorm's running mean and variance (in place), through one
+        all-reduce of one flat f32 buffer: a sum, then a division by the
+        world size, the JAX step's `lax.pmean`."""
+        keys = [k for k, v in losses.items() if v.is_floating_point()]
+        stats = [t for bn in self._bns for t in (bn.mean, bn.var)]
+        parts = list(grads) + stats + [losses[k] for k in keys]
+        if any(p.dtype != torch.float32 for p in parts):
+            raise TypeError("the all-reduce averages f32 tensors only")
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        timer = _Timer(flat.device)
+        dist.all_reduce(flat, group=self.group)
+        timer.stop()
+        flat.div_(dist.get_world_size(self.group))
+        self._comm = (flat.numel() * flat.element_size(), timer)
+        out = [v.view_as(p) for p, v in
+               zip(parts, flat.split([p.numel() for p in parts]))]
+        n = len(grads)
+        for t, v in zip(stats, out[n:n + len(stats)]):
+            t.copy_(v)
+        losses = dict(losses, **dict(zip(keys, out[n + len(stats):])))
+        return out[:n], losses
+
+    def last_all_reduce(self) -> tuple[int, float] | None:
+        """(bytes, milliseconds) of the last step's all-reduce, or None
+        without a group. On a GPU the time is between CUDA events around
+        the collective on the current stream (it waits for the step's
+        earlier work first)."""
+        if self._comm is None:
+            return None
+        nbytes, timer = self._comm
+        return nbytes, timer.ms()
 
     def accum_train_step(self, batches, generator=None) -> dict:
         """One optimizer step over micro-batches (the JAX package's
@@ -182,7 +241,11 @@ class Trainer:
         micro-batch in turn, its BatchNorm running statistics updated
         before the next one runs, the gradients summed and divided by the
         count, then one AdamW step. Returns each float loss averaged over
-        the micro-batches."""
+        the micro-batches. Raises ValueError under a process group: the JAX
+        package does not compose accumulation with data parallelism."""
+        if self.group is not None:
+            raise ValueError("gradient accumulation is not composed with "
+                             "data parallelism (a process group)")
         total, per_micro = None, []
         for batch in batches:
             losses, grads = self.loss_and_grads(batch, generator)
@@ -212,19 +275,47 @@ class Trainer:
         self.step = int(state["step"])
 
 
+class _Timer:
+    """Milliseconds between construction and `stop()`: CUDA events on a
+    GPU (read when `ms()` is called), the host clock on the CPU."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.events = [torch.cuda.Event(enable_timing=True)
+                           for _ in range(2)]
+            self.events[0].record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.cuda:
+            self.events[1].record()
+        else:
+            self.t1 = time.perf_counter()
+
+    def ms(self) -> float:
+        if self.cuda:
+            self.events[1].synchronize()
+            return self.events[0].elapsed_time(self.events[1])
+        return 1e3 * (self.t1 - self.t0)
+
+
 def build_trainer(dtype=torch.float32, seed: int | None = 0,
                   backbone: str = "Res16UNet34C", lr: float = 1e-4,
                   total_steps: int = 10000, schedule: str = "onecycle",
                   weight_decay: float = 1e-2,
                   solver: str = "auction", device="cuda",
-                  weight_noise_robust: float = 0.0, **model_kw) -> Trainer:
+                  weight_noise_robust: float = 0.0, group=None,
+                  **model_kw) -> Trainer:
     """Mask3D(`backbone`) at conf/model/mask3d.yaml's widths with f32
     master params (seeded random unless seed is None), the set criterion of
     conf/loss/set_criterion.yaml (CE / mask BCE / dice weighted 2 / 5 / 2,
     eos 0.1, matcher costs the same) and AdamW of conf/optimizer/adamw.yaml
     (lr 1e-4, weight decay 1e-2) under the onecycle schedule;
     `weight_noise_robust` weighs the tri-plane loss (its batches need
-    `build_triplane=True`), `model_kw` reach Mask3D. Residual
+    `build_triplane=True`), `group` is the data-parallel process group
+    (None: one device), `model_kw` reach Mask3D. Residual
     blocks are rematerialised in the backward (models/backbone.py). The
     model and the optimizer state live on `device`: the GPU unless the
     caller asks for 'cpu' ('cuda' raises without a GPU)."""
@@ -240,4 +331,5 @@ def build_trainer(dtype=torch.float32, seed: int | None = 0,
                              weight_dice=2.0,
                              weight_noise_robust=weight_noise_robust)
     return Trainer(model, criterion,
-                   make_optimizer(lr, total_steps, schedule, weight_decay))
+                   make_optimizer(lr, total_steps, schedule, weight_decay),
+                   group=group)

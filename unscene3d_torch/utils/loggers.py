@@ -16,7 +16,9 @@ This module provides the same surface natively:
     this image ships neither, but the backend surface is the reference's.
 
 Scalar-only by design: the reference logs per-loss/per-aux scalars
-(trainer/trainer.py:149-162) and per-class AP rows (:785-918).
+(trainer/trainer.py:149-162) and per-class AP rows (:785-918). Under a
+data-parallel process group only rank 0 writes: the other ranks build no
+logger (train/experiment.py:build_loggers).
 """
 
 from __future__ import annotations
