@@ -34,7 +34,14 @@ bitwise repeatable with it and with dropout, card-vs-CPU parity of the
 loss), then the loss, dropout, pre-norm, the Mix3D merge collator and the
 eval collate pool through the entry point's functions, and one bench
 forward per decoder mode group (level embeddings + np features + max
-pooling + max_sample_size, learned queries, random queries). After the
+pooling + max_sample_size, learned queries, random queries). Then
+supervised training (`phase_supervised`): scripts/scannet/scannet_val.sh's
+overrides through the entry point on SemanticSegmentationDataset (8 + 2
+bench-scene-sized scenes with multi-class targets, 3 f32 steps of batch 8,
+one validation with save_visualizations, kernels 1-5's launches), and the
+three evaluation CLIs (`phase_eval_clis`: eval_freemask_gt_performance,
+eval_3duis_performance with the port's HDBSCAN, eval_cutler_projection on
+the card and on the CPU, per-frame ids equal). After the
 self-training round, data parallelism (`phase_train_dp`): the f32 step over
 NCCL at world size 1 bitwise the plain step, two ranks on the one card over
 gloo (4 of the train batch's scenes each) bitwise the mean-of-shards
@@ -45,6 +52,7 @@ entry point on two cards, at f32 tolerance.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase train_dp     # that phase alone
+    python3 chip_smoke.py --phase supervised   # or eval_clis: that phase alone
 
 Needs one NVIDIA GPU and nvcc; exits nonzero without them. Phases print one
 line each; the line before the last is a JSON object of per-kernel numbers
@@ -229,6 +237,26 @@ DINO_TOL = 1e-4
 # of 300 x 300 vertices (8 m at 2.7 cm), 4 JPEG frames each
 MAIN_MESH = dict(grid=300, spacing=0.027, num_objects=12)
 MAIN_FRAMES = 4
+# supervised Mask3D training (phase_supervised): the overrides of
+# scripts/scannet/scannet_val.sh through the entry point, on bench-scene-
+# sized scenes in the Mask3D npy layout whose instances carry ScanNet20
+# class indices 0..17 (scannet.yaml filters 0 and 1, wall and floor; its
+# label_offset 0 leaves room for 0..17 in the 19-way head), 3 f32 steps of
+# batch 8 and one validation with save_visualizations
+SCANNET_VAL = ["general.experiment_name=scannet_val",
+               "general.eval_on_segments=true",
+               "general.train_on_segments=true",
+               "general.project_name=mask3d", "data/datasets=scannet",
+               "general.num_targets=19", "data.num_labels=20",
+               "general.resume=True"]
+SUPERVISED_SCENES = {"train": 8, "validation": 2}
+SUPERVISED_CLASSES = tuple(range(18))
+SUPERVISED_STEPS = 3
+# the evaluation CLIs (phase_eval_clis): 2 meshes of phase_pseudo_main's
+# size, pseudo masks from their GT, CutLER-style id maps of 480 x 640 from
+# EVAL_FRAMES poses each
+EVAL_FRAMES = 8
+MASK_IMAGE = (480, 640)
 # the pseudo row of bench.py: scenes x segments x features
 PSEUDO_ROW = dict(batch_scenes=64, num_segments=400)
 EIGH_SCENES = 16         # scenes of the row timed with the exact solver
@@ -2448,6 +2476,235 @@ def phase_self_train(dev, card, f32_step_ms):
     return launches
 
 
+# -------------------------------------------------------------- supervised
+class _Spy:
+    """Wraps Experiment._collate_step and Trainer.train_step while a phase
+    drives the entry point: the experiment, the classes of every collated
+    train batch and every step's total loss."""
+
+    def __init__(self):
+        from unscene3d_torch.train import experiment, loop
+
+        self.mods = (experiment.Experiment, loop.Trainer)
+        self.exp, self.classes, self.losses = None, [], []
+
+    def __enter__(self):
+        exp_cls, trainer_cls = self.mods
+        self.orig = (exp_cls._collate_step, trainer_cls.train_step)
+        collate, step = self.orig
+        spy = self
+
+        def collate_step(exp, scene_lists):
+            spy.exp = exp
+            batches = collate(exp, scene_lists)
+            for b in batches:
+                t = b.target
+                spy.classes.append(sorted(set(t.labels[t.valid].tolist())))
+            return batches
+
+        def train_step(trainer, batch, generator=None):
+            losses = step(trainer, batch, generator)
+            spy.losses.append(float(losses["total"]))
+            return losses
+
+        exp_cls._collate_step, trainer_cls.train_step = collate_step, \
+            train_step
+        return self
+
+    def __exit__(self, *exc):
+        self.mods[0]._collate_step, self.mods[1].train_step = self.orig
+
+
+def phase_supervised(dev, card):
+    """Supervised Mask3D training through the port's entry point,
+    `unscene3d_torch.main_instance_segmentation.main`, with the overrides
+    of scripts/scannet/scannet_val.sh (data/datasets=scannet, 19 targets):
+    SemanticSegmentationDataset on 8 train and 2 validation scenes of the
+    bench scene's size written in the Mask3D npy layout, Mask3D(Res16UNet34C)
+    at conf/model/mask3d.yaml's widths, f32, batch 8, the default
+    augmentations; 3 steps and one validation with save_visualizations.
+    Asserts finite losses, train targets of several classes, kernels 1-5's
+    launches and every validation scene's visualization files; prints the
+    step ms, scenes/s through fit and the prefetch wait."""
+    import os
+    import shutil
+
+    from unscene3d_torch import main_instance_segmentation as entry
+    from unscene3d_torch.data.synthetic import write_mask3d_scenes
+
+    t_phase = time.perf_counter()
+    root = _smoke_dir("supervised")
+    t0 = time.perf_counter()
+    write_mask3d_scenes(f"{root}/data", SUPERVISED_SCENES, **BENCH_SCENE,
+                        class_ids=SUPERVISED_CLASSES, seed=400)
+    t_write = time.perf_counter() - t0
+    cnt = reset_counters()
+    t0 = time.perf_counter()
+    with _Spy() as spy:
+        trainer = entry.main(SCANNET_VAL + [
+            f"general.data_dir={root}/data", f"general.save_dir={root}/run",
+            "data.batch_size=8", f"trainer.max_epochs={SUPERVISED_STEPS}",
+            f"trainer.check_val_every_n_epoch={SUPERVISED_STEPS}",
+            "general.save_visualizations=true"])
+    t_main = time.perf_counter() - t0
+    exp = spy.exp
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    n_steps, n_evals = trainer.step, SUPERVISED_SCENES["validation"]
+    if (n_steps != SUPERVISED_STEPS or exp.device != dev
+            or exp.model.dtype != torch.float32
+            or exp.model.num_classes != 19):
+        raise AssertionError(f"supervised: {n_steps} steps on {exp.device}"
+                             f", {exp.model.dtype}, {exp.model.num_classes} "
+                             "classes")
+    if len(spy.losses) != n_steps or not np.isfinite(spy.losses).all():
+        raise AssertionError(f"supervised losses {spy.losses}")
+    if not all(len(c) > 1 and min(c) >= 2 for c in spy.classes):
+        raise AssertionError(f"supervised target classes {spy.classes}")
+    for k in PER_TRAIN_STEP:
+        want = n_steps * PER_TRAIN_STEP[k] + n_evals * PER_FORWARD[k]
+        if launches[k] != want:
+            raise AssertionError(f"supervised {k}: {launches[k]} launches, "
+                                 f"expected {n_steps} x {PER_TRAIN_STEP[k]}"
+                                 f" + {n_evals} x {PER_FORWARD[k]}")
+    vis = f"{root}/run/visualizations"
+    files = sorted(os.listdir(vis))
+    for i in range(SUPERVISED_SCENES["train"],
+                   SUPERVISED_SCENES["train"] + n_evals):
+        for suffix in (".html", "_rgb.ply", "_segments.ply"):
+            if f"scene{i:04d}_00{suffix}" not in files:
+                raise AssertionError(f"supervised visualizations: {files}")
+    res = exp.last_results
+    aps = [res["all_ap"], res["all_ap_50%"], res["all_ap_25%"]]
+    if not all(np.isfinite(aps)):
+        raise AssertionError(f"supervised AP not finite {aps}")
+    st, ev = exp.fit_stats, exp.eval_stats
+    scenes_s = TRAIN_BATCH * len(st["step_ms"]) / sum(st["epoch_s"])
+    vis_bytes = sum(os.path.getsize(os.path.join(vis, f)) for f in files)
+    log(f"supervised (scannet_val.sh through main_instance_segmentation."
+        f"main, f32, batch 8 of {BENCH_SCENE['num_points']}-point scenes, "
+        f"{sum(SUPERVISED_SCENES.values())} scenes written in "
+        f"{t_write:.1f}s): main {t_main:.1f}s; train classes per batch "
+        f"{spy.classes}; losses {[round(x, 4) for x in spy.losses]}; step "
+        f"ms {[round(x, 1) for x in st['step_ms']]}, prefetch wait ms "
+        f"{[round(x, 1) for x in st['wait_ms']]}, epoch s "
+        f"{[round(x, 2) for x in st['epoch_s']]} = {scenes_s:.2f} scenes/s"
+        f" through fit; validation {_eval_split(ev)}; AP / AP50 / AP25 "
+        f"{aps[0]:.4f} / {aps[1]:.4f} / {aps[2]:.4f} (random weights); "
+        f"{len(files)} visualization files, {vis_bytes} bytes; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)} = {n_steps} x "
+        f"the step's + {n_evals} x the forward's; on {card}")
+    STEP_STATS["supervised"] = (scenes_s, ev["seconds"] / ev["scenes"])
+    del trainer, exp, spy
+    torch.cuda.empty_cache()
+    shutil.rmtree(root)       # ~0.4 GB of scenes and visualizations
+    log(f"phase supervised: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def phase_eval_clis(dev, card):
+    """The three evaluation CLIs through their `main(argv)` on a ScanNet-
+    layout directory written here: 2 meshes of phase_pseudo_main's size
+    (scannet200_insseg `.pth` clouds, meshes, poses, ScanNet's color
+    intrinsics), pseudo masks drawn from the GT instances for
+    eval_freemask_gt_performance, and CutLER-style PNG id maps rendered
+    from the GT for eval_cutler_projection, which runs on the card and
+    again with --device cpu: the per-frame ids must be equal. Prints each
+    CLI's seconds a scene and HDBSCAN's share of eval_3duis_performance."""
+    import contextlib
+    import io
+    import os
+
+    from PIL import Image
+
+    from unscene3d_torch import (eval_3duis_performance,
+                                 eval_cutler_projection,
+                                 eval_freemask_gt_performance)
+    from unscene3d_torch.data.synthetic import (make_mesh_scene,
+                                                render_instance_ids,
+                                                ring_poses,
+                                                scannet_color_intrinsics,
+                                                write_scannet_scene)
+
+    t_phase = time.perf_counter()
+    root = _smoke_dir("eval_clis")
+    ins, scans = os.path.join(root, "insseg"), os.path.join(root, "scans")
+    masks_dir, cutler = os.path.join(root, "masks"), os.path.join(root,
+                                                                  "cutler")
+    os.makedirs(masks_dir)
+    names = [f"scene{i:04d}_00" for i in range(2)]
+    K = scannet_color_intrinsics()
+    K_img = K[:3, :3] * np.array([MASK_IMAGE[1] / 1296.0,
+                                  MASK_IMAGE[0] / 968.0, 1.0])[:, None]
+    verts = {}
+    for i, name in enumerate(names):
+        mesh = make_mesh_scene(**MAIN_MESH, seed=20 + i)
+        align = np.eye(4)
+        align[:3, 3] = [-4.0, -4.0, 0.0]
+        centre = (mesh["vertices"].min(0) + mesh["vertices"].max(0)) / 2
+        poses = ring_poses(centre, 7.0, 2.5, EVAL_FRAMES)
+        write_scannet_scene(ins, scans, name, mesh, alignment=align,
+                            poses=poses, image_resolution=(96, 128), seed=i)
+        np.savetxt(os.path.join(scans, name, "intrinsic",
+                                "intrinsic_color.txt"), K)
+        inst = mesh["instances"]
+        r = np.random.RandomState(i)
+        soft = np.stack([np.where(inst == k, 0.6 + 0.4 * r.rand(len(inst)),
+                                  0.4 * r.rand(len(inst)))
+                         for k in np.unique(inst[inst >= 0])], 1)
+        np.save(os.path.join(masks_dir, f"{name}_cloud.npy"),
+                mesh["vertices"])
+        np.save(os.path.join(masks_dir, f"{name}_masks.npy"), soft)
+        os.makedirs(os.path.join(cutler, name))
+        for k, pose in enumerate(poses):
+            Image.fromarray(render_instance_ids(
+                mesh["vertices"].astype(np.float64), inst, pose, K_img,
+                MASK_IMAGE)).save(os.path.join(cutler, name,
+                                               f"{20 * k:06d}.png"))
+        verts[name] = len(mesh["vertices"])
+    with open(os.path.join(ins, "val.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    t_write = time.perf_counter() - t_phase
+
+    def run(module, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = module.main(argv)
+        lines = out.getvalue().splitlines()
+        if res["results"] is None or not lines[-1].startswith("AP "):
+            raise AssertionError(f"{module.__name__}: {lines}")
+        aps = [res["results"][k] for k in ("all_ap", "all_ap_50%",
+                                           "all_ap_25%")]
+        if not all(np.isfinite(aps)):
+            raise AssertionError(f"{module.__name__}: AP {aps}")
+        return res, lines[-1]
+
+    res_f, line_f = run(eval_freemask_gt_performance,
+                        ["--masks_dir", masks_dir, "--gt_dir", ins])
+    res_h, line_h = run(eval_3duis_performance, ["--gt_dir", ins])
+    cli = ["--masks_dir", cutler, "--gt_dir", ins, "--scans_dir", scans]
+    res_c, line_c = run(eval_cutler_projection, cli)
+    res_cpu, line_cpu = run(eval_cutler_projection, cli + ["--device", "cpu"])
+    differ = sum(int((a != b).sum()) for s in names for a, b in zip(
+        res_c["per_frame"][s], res_cpu["per_frame"][s]))
+    if differ or line_c != line_cpu:
+        raise AssertionError(f"cutler projection: {differ} per-frame ids "
+                             f"differ card vs CPU; {line_c} / {line_cpu}")
+    n = len(names)
+    log(f"eval CLIs ({n} scenes of {sorted(verts.values())} points, layout "
+        f"written in {t_write:.1f}s; host clock): freemask_gt "
+        f"{res_f['seconds'] / n:.3f} s a scene ({line_f}); 3duis "
+        f"{res_h['seconds'] / n:.3f} s a scene on {res_h['voxels']} voxels "
+        f"(5 cm), HDBSCAN {res_h['hdbscan_seconds'] / n:.3f} s a scene = "
+        f"{100 * res_h['hdbscan_seconds'] / res_h['seconds']:.1f}% ({line_h})"
+        f"; cutler_projection on the card {res_c['seconds'] / n:.3f} s a "
+        f"scene ({res_c['frames']} frames of {MASK_IMAGE[0]} x "
+        f"{MASK_IMAGE[1]}, projection {res_c['project_seconds']:.3f}s; "
+        f"{line_c}), with --device cpu {res_cpu['seconds'] / n:.3f} s a scene"
+        f" (projection {res_cpu['project_seconds']:.3f}s); per-frame ids card"
+        f" vs CPU: {differ} differ (EQUAL); on {card}")
+    log(f"phase eval_clis: {time.perf_counter() - t_phase:.1f}s")
+
+
 # ---------------------------------------------------------------- train_dp
 def train_shards(n):
     """The train batch's 8 scenes (train_batch) as n shards of 8 / n,
@@ -3198,6 +3455,10 @@ def main(argv) -> int:
         # the data-parallel phase alone (on a machine of several cards too)
         phase_train_dp(dev, card, train_batch())
         return 0
+    if argv in (["--phase", "supervised"], ["--phase", "eval_clis"]):
+        {"supervised": phase_supervised,
+         "eval_clis": phase_eval_clis}[argv[1]](dev, card)
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -3259,6 +3520,9 @@ def main(argv) -> int:
         dev, card, tbatch_host)
     del tbatch_host
     launches["train_options"] = phase_train_options(dev, card, batches[()])
+    torch.cuda.empty_cache()
+    launches["supervised"] = phase_supervised(dev, card)
+    phase_eval_clis(dev, card)
 
     main_case = {"conv3_fwd": (0, 128, 96, torch.bfloat16),
                  "k_apply_gemm": ("up", torch.bfloat16),

@@ -299,8 +299,16 @@ def test_port_imports_no_jax():
         "from unscene3d_torch.parallel import distributed, mesh\n"
         "assert distributed.initialize_from_env('cpu') is False\n"
         "assert entry.local_ranks(cfg) == 1\n"
+        "from unscene3d_torch import (eval_3duis_performance,"
+        " eval_cutler_projection, eval_freemask_gt_performance)\n"
+        "from unscene3d_torch.data import (dataset_sets, pseudo_datasets,"
+        " pseudo_transforms, semseg_dataset)\n"
+        "from unscene3d_torch.eval import html_viewer, metrics, visualize\n"
+        "from unscene3d_torch.pseudo.freemask_utils import lidar_3duis\n"
+        "lab = lidar_3duis(np.random.RandomState(0).rand(300, 3), 5)\n"
+        "assert lab.shape == (300,) and lab.max() >= 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax',"
-        " 'jaxlib', 'unscene3d_tpu', 'benchmarks')]\n"
+        " 'jaxlib', 'unscene3d_tpu', 'benchmarks', 'sklearn')]\n"
         "assert not bad, bad\n"
         "print('OK')\n")
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")

@@ -121,20 +121,19 @@ def test_dtype_strings_become_torch_dtypes(name, dtype):
 
 
 def test_unported_target_raises_without_importing_jax():
-    mod = "unscene3d_tpu.eval.metrics"
+    mod = "unscene3d_tpu.models.resunet"
     before = mod in sys.modules
-    with pytest.raises(ImportError, match="unscene3d_tpu.eval.metrics"):
-        instantiate({"_target_": f"{mod}.ConfusionMatrix", "num_classes": 3})
+    with pytest.raises(ImportError, match="unscene3d_tpu.models.resunet"):
+        instantiate({"_target_": f"{mod}.ResUNet14A", "out_channels": 3})
     assert (mod in sys.modules) == before
 
 
 @pytest.mark.parametrize("override", [
-    "matcher.num_points=100", "general.save_visualizations=true",
-    "general.backbone_checkpoint=x.ckpt", "model.train_on_segments=false"])
+    "matcher.num_points=100", "general.backbone_checkpoint=x.ckpt",
+    "model.train_on_segments=false"])
 def test_unported_config_values_raise(override, data_dir, tmp_path):
     """Keys the JAX package never reads (matcher.num_points,
-    general.backbone_checkpoint, model.train_on_segments) and a later
-    slice's (general.save_visualizations) raise."""
+    general.backbone_checkpoint, model.train_on_segments) raise."""
     cfg = get_parameters(TINY + [f"general.data_dir={data_dir}",
                                  f"general.save_dir={tmp_path}/run",
                                  override])

@@ -457,9 +457,17 @@ def test_freemask_query_and_nms_match_jax():
         np.testing.assert_allclose(
             matrix_nms(masks, scores, kernel), jax_matrix_nms(
                 masks, scores, kernel), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="fps"):
-        freemask_query_masks(feats, uniq, conn, coords, use_fps_sampling=True,
-                             **kw)
+    # the FPS queries: none drawn at fps_num_samples >= S (the JAX function
+    # does not sample there), FPS on the first three feature channels below
+    for n_fps in (s, s // 2):
+        wm, ws = jquery.freemask_query_masks(
+            feats, uniq, conn, coords, use_fps_sampling=True,
+            fps_num_samples=n_fps, **kw)
+        gm, gs = freemask_query_masks(feats, uniq, conn, coords,
+                                      use_fps_sampling=True,
+                                      fps_num_samples=n_fps, **kw)
+        np.testing.assert_array_equal(gm, wm)
+        np.testing.assert_allclose(gs, ws, atol=1e-6)
 
 
 @pytest.mark.parametrize("reference_average", [False, True])
@@ -619,8 +627,8 @@ def test_pipeline_unported_options_raise():
     with pytest.raises(KeyError, match="unknown 2d model"):
         load_2d_model("CLIPNet")
     pipe = PseudoMaskPipeline(device="cpu")
-    with pytest.raises(NotImplementedError, match="visualize"):
-        pipe.process_scenes([], save_visualizations=True)
+    # save_visualizations is ported (tests/test_torch_eval_clis.py)
+    assert pipe.process_scenes([], save_visualizations=True) == {}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             PseudoMaskPipeline()        # the default device is the card

@@ -1,10 +1,16 @@
-"""The ScanNet200 head / common / tail category splits (the port's own copy
-of the three tuples of unscene3d_tpu/data/scannet_constants.py;
+"""The ScanNet20 class ids and the ScanNet200 head / common / tail category
+splits (the port's own copy of those tuples of
+unscene3d_tpu/data/scannet_constants.py;
 datasets/scannet200/scannet200_splits.py:3-5). `Experiment.fit` reports the
 mean AP of each split over the classes it evaluates
 (trainer/trainer.py:861-870); the class-agnostic freemask preset has none of
 them.
 """
+
+# the nyu40 ids of the 20 benchmark classes
+VALID_CLASS_IDS_20 = (
+    1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39,
+)
 
 HEAD_CATS_SCANNET_200 = (
     "tv stand", "curtain", "blinds", "shower curtain", "bookshelf", "tv",

@@ -267,3 +267,74 @@ def write_scannet_scene(insseg_dir: str, scans_dir: str, name: str,
                 f.write(buf.getvalue())
         np.savetxt(os.path.join(scan, "pose", f"{i * frame_skip:06d}.txt"),
                    pose)
+
+
+def write_mask3d_scenes(root: str, modes: dict, num_points: int = 2000,
+                        num_objects: int = 4, extent: float = 6.0,
+                        class_ids=tuple(range(19)), seed: int = 0) -> None:
+    """Write a labeled data set in the Mask3D npy layout that
+    data/semseg_dataset.py reads: for each `modes` entry (mode -> scene
+    count, e.g. {"train": 8, "validation": 2}) that many `make_scene`
+    scenes as `{root}/{mode}/{i:04d}_00.npy` (columns xyz, rgb 0-255,
+    normal, segment, label, instance) and `{root}/{mode}_database.yaml`
+    (absolute `filepath`, `raw_filepath` naming `scene{i:04d}_00`,
+    `file_len`). Each instance's label is drawn from `class_ids`; the
+    floor (instance -1) is labeled 1, ScanNet20's floor."""
+    import os
+
+    import yaml
+
+    r = np.random.RandomState(seed)
+    k = 0
+    for mode, count in modes.items():
+        os.makedirs(os.path.join(root, mode), exist_ok=True)
+        db = []
+        for i in range(count):
+            s = make_scene(num_points=num_points, num_objects=num_objects,
+                           extent=extent, seed=seed + k)
+            k += 1
+            inst = s["instances"].astype(np.int64)
+            per_inst = np.asarray(class_ids)[r.randint(0, len(class_ids),
+                                                       num_objects)]
+            labels = np.where(inst >= 0, per_inst[np.maximum(inst, 0)], 1)
+            n = len(s["xyz"])
+            points = np.hstack([
+                s["xyz"], s["colors"] * 255.0, np.tile([0, 0, 1.0], (n, 1)),
+                s["segments"][:, None], labels[:, None], inst[:, None],
+            ]).astype(np.float32)
+            path = os.path.abspath(os.path.join(root, mode, f"{i:04d}_00.npy"))
+            np.save(path, points)
+            db.append({"filepath": path, "file_len": n,
+                       "raw_filepath": f"/scans/scene{k - 1:04d}_00/mesh.ply"})
+        with open(os.path.join(root, f"{mode}_database.yaml"), "w") as f:
+            yaml.safe_dump(db, f)
+
+
+def scannet_color_intrinsics() -> np.ndarray:
+    """ScanNet's 4 x 4 color intrinsics at its 1296 x 968 color resolution
+    (1170.19 px focal length), the frame the eval CLIs scale from."""
+    K = np.eye(4)
+    K[0, 0] = K[1, 1] = 1170.187988
+    K[0, 2], K[1, 2] = 647.5, 483.5
+    return K
+
+
+def render_instance_ids(verts: np.ndarray, instances: np.ndarray,
+                        pose: np.ndarray, K: np.ndarray, shape) -> np.ndarray:
+    """A CutLER-style (h, w) uint8 id map of a mesh seen from `pose`
+    (camera-to-world) through the 3 x 3 `K`: each pixel that a vertex
+    projects to holds instance + 1 of its nearest such vertex (0 for the
+    floor's -1 and for empty pixels)."""
+    h, w = shape
+    cam = (verts - pose[:3, 3]) @ pose[:3, :3]
+    z = cam[:, 2]
+    zs = np.where(z > 0, z, 1.0)
+    u = np.round(K[0, 0] * cam[:, 0] / zs + K[0, 2]).astype(np.int64)
+    v = np.round(K[1, 1] * cam[:, 1] / zs + K[1, 2]).astype(np.int64)
+    ok = np.flatnonzero((z > 0.05) & (u >= 0) & (u < w) & (v >= 0)
+                        & (v < h))
+    order = ok[np.argsort(z[ok], kind="stable")]      # nearest first
+    pix, first = np.unique(v[order] * w + u[order], return_index=True)
+    img = np.zeros(h * w, np.uint8)
+    img[pix] = instances[order[first]] + 1
+    return img.reshape(h, w)

@@ -1,5 +1,6 @@
 """The port's native host library: the k3 neighbour maps, the window-table
-passes, furthest point sampling and the Felzenszwalb mesh segmentator in C++
+passes, furthest point sampling, HDBSCAN's minimum spanning tree and the
+Felzenszwalb mesh segmentator in C++
 (`kernel_maps.cpp`, `point_ops.cpp`, `segmentator.cpp`, the port's own
 copies of the JAX package's sources), bound through ctypes.
 
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "build_neighbor_map_padded": [_P, _I, _P, _I, _I, _I, _P],
     # xyz, n, valid, k, dist, out
     "furthest_point_sample": [_P, _I, _P, _I, _P, _P],
+    # x, n, dim, core, best, src_buf, in_tree, out_src, out_dst, out_w
+    "hdbscan_prim_mst": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     # nbr, n_pad, tile, lo_reg
     "win_lo_reg": [_P, _I, _I, _P],
     # nbr, n_pad, tile, lo_of, w_reg, lidx, sp_out, sp_in, sp_k, cap
@@ -191,6 +194,28 @@ def furthest_point_sample(xyz: np.ndarray, valid: np.ndarray,
     return out
 
 
+@_counted
+def hdbscan_prim_mst(x: np.ndarray, core: np.ndarray):
+    """(source, target, weight) of the mutual-reachability MST's n - 1
+    edges in Prim's order, bitwise pseudo/hdbscan.py:prim_mst."""
+    x = np.ascontiguousarray(x, np.float64)
+    core = np.ascontiguousarray(core, np.float64)
+    n = len(x)
+    if x.ndim != 2 or core.shape != (n,) or n < 2:
+        raise ValueError(f"x {x.shape}, core {core.shape}")
+    src = np.empty(n - 1, np.int64)
+    dst = np.empty(n - 1, np.int64)
+    w = np.empty(n - 1, np.float64)
+    best = np.empty(n, np.float64)
+    src_buf = np.empty(n, np.int64)
+    in_tree = np.empty(n, np.uint8)
+    rc = load().hdbscan_prim_mst(
+        _ptr(x), n, x.shape[1], _ptr(core), _ptr(best), _ptr(src_buf),
+        _ptr(in_tree), _ptr(src), _ptr(dst), _ptr(w))
+    _check(rc, "hdbscan_prim_mst")
+    return src, dst, w
+
+
 _LO_SENTINEL = np.int32(2**31 - 1)
 
 
@@ -328,7 +353,7 @@ def segment_mesh_numpy(vertices, faces, colors, kthr: float = 0.005,
 
 
 WRAPPERS = (build_neighbor_map_padded, furthest_point_sample, win_lo_reg,
-            win_fill_lidx, segment_mesh)
+            win_fill_lidx, segment_mesh, hdbscan_prim_mst)
 
 
 def calls() -> dict:

@@ -1,28 +1,22 @@
 """Query-key similarity pseudo-mask generator (counterpart of
 unscene3d_tpu/pseudo/freemask_query.py), numpy on the host.
 
-Queries = per-segment mean features; soft masks = min-max-normalized cosine
-similarity between queries and segment features; hard threshold ->
-connectivity separation -> XY-extent filter -> matrix-NMS maskness ranking
--> top-K and score threshold. The FPS-subsampled query set waits for the
-port of ops/fps.py: `use_fps_sampling=True` raises NotImplementedError.
+Queries = per-segment mean features, or with `use_fps_sampling` the
+`fps_num_samples` segments that furthest point sampling picks (native C++,
+`native.furthest_point_sample`) when there are more segments than that;
+soft masks = min-max-normalized cosine similarity between queries and
+segment features; hard threshold -> connectivity separation -> XY-extent
+filter -> matrix-NMS maskness ranking -> top-K and score threshold.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from unscene3d_torch import native
 from unscene3d_torch.eval.nms import matrix_nms
 from unscene3d_torch.eval.postprocess import separate_segments
-
-
-def cosine_sim(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """Min-max-normalized cosine similarity, (queries b, keys a)."""
-    an = a / np.maximum(np.linalg.norm(a, axis=-1, keepdims=True), 1e-12)
-    bn = b / np.maximum(np.linalg.norm(b, axis=-1, keepdims=True), 1e-12)
-    s = bn @ an.T
-    s = s - s.min()
-    return s / max(s.max(), 1e-12)
+from unscene3d_torch.pseudo.freemask_utils import cosine_sim
 
 
 def freemask_query_masks(
@@ -39,12 +33,18 @@ def freemask_query_masks(
     use_fps_sampling: bool = False,
     fps_num_samples: int = 100,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Returns (masks (K, S) bool at segment level, maskness scores (K,))."""
-    if use_fps_sampling:
-        raise NotImplementedError(
-            "use_fps_sampling needs furthest_point_sample (ops/fps.py), "
-            "which is not ported yet")
-    soft = cosine_sim(segment_feats, segment_feats)       # (Q, S)
+    """Returns (masks (K, S) bool at segment level, maskness scores (K,)).
+
+    FPS samples on the first three FEATURE channels, not on the segment
+    centroids: a quirk of the reference (unscene3d_tpu/pseudo/
+    freemask_query.py:48-50) that the port keeps."""
+    queries = segment_feats
+    if use_fps_sampling and len(segment_feats) > fps_num_samples:
+        idx = native.furthest_point_sample(
+            segment_feats[:, :3].astype(np.float32),
+            np.ones(len(segment_feats), bool), fps_num_samples)
+        queries = segment_feats[idx]
+    soft = cosine_sim(queries, segment_feats)       # (Q, S)
     soft[:, ~np.any(segment_feats != 0, axis=-1)] = 0.0
     masks = soft >= hard_mask_threshold
     keep = masks.sum(1) > 2

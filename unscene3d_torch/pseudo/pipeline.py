@@ -15,10 +15,10 @@ folded into the running per-voxel features by the reference's pairwise
 mean, so no frame's features reach the host. Weights come from the
 checkpoints (`csc_weights`, `dino_weights`), for the CSC also from JAX
 variables (`csc_variables`; the tests), or are seeded random ones.
-`save_visualizations` raises NotImplementedError (eval/visualize.py is not
-ported). `timings` holds the seconds the last `process_scenes` call spent
-by stage (the CSC extractor's host graph build and its forward apart, the
-ViT and the projection apart).
+`save_visualizations` writes each saved scene's PLY layers and HTML viewer
+under `<save_dir>/visualizations` (eval/visualize.py). `timings` holds the
+seconds the last `process_scenes` call spent by stage (the CSC extractor's
+host graph build and its forward apart, the ViT and the projection apart).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from scipy.spatial import KDTree
 
+from unscene3d_torch.eval.visualize import save_scene_visualization
 from unscene3d_torch.models.encoders_2d.dino import DinoNet, load_dino_weights
 from unscene3d_torch.models.torch_convert import load_csc_backbone
 from unscene3d_torch.ops.segment_ops import segment_mean
@@ -155,13 +156,11 @@ class PseudoMaskPipeline:
         sequences: (N,) ids and (E, 2) id pairs) and full_coords (P, 3);
         for the 2D modalities also images (V, h, w, 3) in [0, 1], poses
         (V, 4, 4) camera-to-world and intrinsics (3, 3) (as
-        data/scannet_pseudo.py gives them). Returns {scene_name: (cloud (P, 3) f32, masks (P, K) bool)}; saves
-        both as .npy when save_dir is set, skipping scenes whose cloud
-        file exists."""
-        if save_visualizations:
-            raise NotImplementedError(
-                "save_visualizations needs eval/visualize.py, which is not "
-                "ported yet")
+        data/scannet_pseudo.py gives them). Returns {scene_name: (cloud
+        (P, 3) f32, masks (P, K) bool)}; saves both as .npy when save_dir
+        is set, skipping scenes whose cloud file exists, and with
+        `save_visualizations` the scene's RGB, segment and mask layers
+        under save_dir/visualizations."""
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
         todo = [s for s in scenes if not (
@@ -217,5 +216,14 @@ class PseudoMaskPipeline:
                         cloud)
                 np.save(os.path.join(save_dir, f"{s['scene_name']}_masks.npy"),
                         full_masks)
+                if save_visualizations:
+                    # browsable pseudo-mask scenes (reference pyviz3d
+                    # export, unscene3d_pseudo_main.py:601-644)
+                    save_scene_visualization(
+                        os.path.join(save_dir, "visualizations"),
+                        s["scene_name"], cloud,
+                        colors=s.get("full_colors"),
+                        segments=inp["segment_ids"][match],
+                        masks=full_masks.astype(bool))
         self._clock("lift_rebase", t0)
         return results

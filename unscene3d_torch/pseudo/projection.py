@@ -15,8 +15,14 @@ import torch
 
 
 def _world_to_cam(c2w, pts):
-    """c2w: (4, 4) camera-to-world pose; pts (N, 3) -> camera frame."""
-    return (pts - c2w[:3, 3]) @ c2w[:3, :3]   # R^T (p - t)
+    """c2w: (4, 4) camera-to-world pose; pts (N, 3) -> camera frame,
+    R^T (p - t). Elementwise products summed in axis order, not a matmul:
+    each op rounds alike on the CPU and the card, so both project every
+    point to the same pixel (a 3 x 3 GEMM's order differs between BLAS
+    libraries)."""
+    d = pts - c2w[:3, 3]
+    r = c2w[:3, :3]
+    return d[:, 0:1] * r[0] + d[:, 1:2] * r[1] + d[:, 2:3] * r[2]
 
 
 def _project_pinhole(K, cam):

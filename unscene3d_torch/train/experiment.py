@@ -56,9 +56,12 @@ barrier, under the process group's timeout (distributed.py:TIMEOUT).
 
 `data.prefetch_processes > 0` collates the evaluation's scenes in a pool of
 spawned processes (`CollatePool`, the JAX package's), which never touch the
-GPU. Raising NotImplementedError where the config asks for them:
-`general.backbone_checkpoint` (the JAX package never reads it) and
-`general.save_visualizations`.
+GPU. `general.save_visualizations` writes each evaluated scene's PLY layers
+and HTML viewer under `<save_dir>/visualizations` (eval/visualize.py).
+`general.backbone_checkpoint` raises NotImplementedError (the JAX package
+never reads it). A target label outside the model's classes raises
+ValueError before the step (the JAX package's loss turns it into NaN, and
+on the card it would be an out-of-bounds device gather).
 """
 
 from __future__ import annotations
@@ -82,6 +85,7 @@ from unscene3d_torch.data.collate import FreeMaskCollator
 from unscene3d_torch.eval.device_post import to_host
 from unscene3d_torch.eval.instance_eval import evaluate_instances
 from unscene3d_torch.eval.postprocess import SegmentVote
+from unscene3d_torch.eval.visualize import save_scene_visualization
 from unscene3d_torch.inference import Predictor
 from unscene3d_torch.models.weights import init_random_
 from unscene3d_torch.parallel import distributed as dp
@@ -371,8 +375,6 @@ class Experiment:
             raise NotImplementedError(
                 "general.backbone_checkpoint: the JAX package never reads "
                 "it, and the port does not either")
-        if bool(cfg.general.get("save_visualizations", False)):
-            raise NotImplementedError("save_visualizations is not ported")
         self.model = model
         self.criterion = criterion
         self.train_dataset = train_dataset
@@ -460,9 +462,22 @@ class Experiment:
                 for ids in step_ids]
 
     def _collate_step(self, scene_lists: list[list[dict]]) -> list:
-        """Host batches (pinned when they go to a GPU) of one step."""
+        """Host batches (pinned when they go to a GPU) of one step; raises
+        ValueError on a target label outside [0, num_classes)."""
         batches = [self.collator.collate(scenes)[0]
                    for scenes in scene_lists]
+        num_classes = int(self.model.num_classes)
+        for b in batches:
+            if b.target is None:
+                continue
+            lab = b.target.labels[b.target.valid]
+            if len(lab) and (int(lab.min()) < 0
+                             or int(lab.max()) >= num_classes):
+                raise ValueError(
+                    f"target labels span [{int(lab.min())}, "
+                    f"{int(lab.max())}], outside the model's {num_classes} "
+                    "classes (general.num_targets): check the data set's "
+                    "label_offset and filter_out_classes")
         if self.device.type == "cuda":
             batches = [map_tensors(b, torch.Tensor.pin_memory)
                        for b in batches]
@@ -806,6 +821,16 @@ class Experiment:
                     meta.full_res_coords[0])
             np.save(os.path.join(out_dir, f"{name}_masks.npy"),
                     p["masks"].astype(bool))
+        if bool(cfg.general.get("save_visualizations", False)):
+            # colored-PLY export in place of the reference's pyviz3d
+            # scenes (trainer/trainer.py:197-357)
+            save_scene_visualization(
+                os.path.join(self.save_dir, "visualizations"), name,
+                meta.full_res_coords[0],
+                colors=np.asarray(scene.get("colors"))
+                if scene.get("colors") is not None else None,
+                segments=meta.original_segments[0],
+                masks=p["masks"].astype(bool))
         times = np.array([t1 - t0, t2 - t1, time.perf_counter() - t2])
         return name, pred, gt, bp, bg, times
 
