@@ -264,6 +264,32 @@ NCUT_PARITY_SCENES = 8   # card-vs-CPU NCut scenes (f32)
 # planted-object recovery of cholinv against eigh, the reference's own
 # acceptance criterion (tests/test_ncut_solver_agreement.py): within 0.10
 RECOVERY_TOL = 0.10
+# the brick route (phase_brick_route, phase_brick_train, phase_brick_entry,
+# phase_brick_parity): the JAX collator's `brick_levels` at levels 0 and 1
+# for the bench scene, level 0 for the train batch
+BRICK_LEVELS = (0, 1)
+BRICK_TRAIN_LEVELS = (0,)
+BRICK_PARITY_LEVELS = (1,)
+# the brick route's bf16 outputs against the gather route's bf16 ones, as a
+# multiple of the gather route's own bf16-vs-f32 spread per output (two
+# routes through the same f32 math that round to bf16 at other points;
+# tests/test_torch_mask3d.py's BF16_FACTOR)
+BRICK_BF16_FACTOR = 2.0
+# phase_resunet: the MinkUNet / ResNet families with ScanNet's 20 classes
+RESUNET_CLASSES = 20
+# phase_lseg: ScanNet's 480 x 640 frames x 0.4 (conf/pseudo/default.yaml's
+# downsample_ratio; both divisible by 32) and the JAX LSegNet's default
+# size; the tiny configuration card vs CPU relative to max|CPU| (f32
+# products summed in another order)
+LSEG_FRAMES = ((192, 256), (256, 320))
+LSEG_TOL = 1e-4
+# phase_renderers: card vs CPU relative to max|CPU|: the nearest render's
+# sums in another order (kernel 3 against index_add_) RENDER_TOL; the
+# interpolating render INTERP_TOL, set from its reading of 1.68e-5 on an
+# NVIDIA H100 80GB HBM3 at 700 W (its source is not yet known: the weights
+# sqrt(3) - |pos - corner| cancel near a far corner, and w / (1e-4 + sum w)
+# scales a weight's last bit by up to 1 / sum w where the sum is small)
+RENDER_TOL, INTERP_TOL = 1e-5, 1e-4
 
 
 def log(msg: str) -> None:
@@ -314,6 +340,12 @@ def hits(table) -> int:
     """Entries of a neighbour / child / parent map that are no miss (misses
     point at the map's largest row)."""
     return int((table != table.max()).sum().item())
+
+
+def distinct_rows(table) -> int:
+    """Rows a map points at, each counted once, misses (the map's largest
+    row) left out: the rows a gather over the map must read at least once."""
+    return int(torch.unique(table[table != table.max()]).numel())
 
 
 def phase_device():
@@ -1943,6 +1975,35 @@ def phase_pseudo_both(dev, card):
     if not err <= DINO_TOL * scale:
         raise AssertionError(f"pseudo both: DINO card vs CPU {err} > "
                              f"{DINO_TOL} * {scale}")
+    # reference_average=False: each voxel's mean over the frames that hit
+    # it, on one scene
+    mean_pipe = PseudoMaskPipeline(
+        modality="both", csc_weights=csc, dino_weights=dino,
+        ncut_cfg=NCutConfig(**FREEMASK), resolution_scale=2,
+        voxel_size=VOXEL, device=dev, reference_average=False)
+    s0 = scenes[0]
+    cnt = reset_counters()
+    t0 = time.perf_counter()
+    cloud, masks = mean_pipe.process_scenes([s0])[s0["scene_name"]]
+    torch.cuda.synchronize()
+    t_mean = time.perf_counter() - t0
+    mean_got = {k: fn.launches for k, fn in cnt.items()}
+    if (masks.dtype != bool or masks.shape[0] != len(s0["full_coords"])
+            or mean_pipe.hit_share != {s0["scene_name"]:
+                                       share[s0["scene_name"]]}
+            or any(mean_got[k] != v for k, v in PER_CSC_FORWARD.items())):
+        raise AssertionError(f"pseudo both, reference_average=False: masks "
+                             f"{masks.dtype} {masks.shape}, hit share "
+                             f"{mean_pipe.hit_share}, launches {mean_got}")
+    log(f"  reference_average=False (mean over each voxel's hit frames), "
+        f"scene {s0['scene_name']}: {t_mean:.1f}s, masks {masks.shape}, "
+        f"voxels hit {mean_pipe.hit_share[s0['scene_name']]:.3f} (as the "
+        f"pairwise mean's), stages "
+        + ", ".join(f"{k} {1e3 * v:.0f}ms"
+                    for k, v in mean_pipe.timings.items()))
+    for k in got:
+        got[k] += mean_got[k]
+    del mean_pipe
     log(f"phase pseudo_both: {time.perf_counter() - t_phase:.1f}s")
     del pipe
     torch.cuda.empty_cache()
@@ -2145,10 +2206,11 @@ def _relative(a, b):
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
 
 
-def phase_train_parity(dev):
+def phase_train_parity(dev, brick_levels=()):
     """One f32 train step of the same seeded trainer on the card (kernels)
     and on the CPU (twins), on a ~30k-voxel scene: losses, every gradient,
-    the updated params and BN running stats.
+    the updated params and BN running stats; with `brick_levels`, the
+    scene collated with those levels' brick tables (kernel 7 on the card).
 
     The step takes discrete decisions: the point samples (top-k), the
     decoder's block masks (sigmoid(readout) < 0.5), the matching and every
@@ -2167,7 +2229,8 @@ def phase_train_parity(dev):
     from unscene3d_torch.train.loop import build_trainer
 
     scene = make_scene(num_points=30_000, num_objects=6, extent=4.0, seed=7)
-    batch, meta = FreeMaskCollator(voxel_size=VOXEL, fps_queries=100)([scene])
+    batch, meta = FreeMaskCollator(voxel_size=VOXEL, fps_queries=100,
+                                   brick_levels=brick_levels)([scene])
     relu, sample_level, attend_level = (torch.relu, m3d._sample_level,
                                         m3d._attend_level)
     decisions = {"relu": [], "sample": [], "blocked": []}
@@ -2257,7 +2320,8 @@ def phase_train_parity(dev):
     p_tol = 2 * 1e-4 / 25 + 1e-6
     p_err, p_name = max(((sg[k] - sc[k]).abs().max().item(), k)
                         for k in sc)
-    log(f"  train parity (f32, {meta.num_voxels[0]} voxels, samples, block "
+    log(f"  train parity (f32, {meta.num_voxels[0]} voxels, brick_levels="
+        f"{tuple(brick_levels)}, samples, block "
         f"masks and matching replayed): loss rel errs "
         f"{', '.join(f'{k} {v:.2e}' for k, v in worst.items())} (tol "
         f"{TRAIN_LOSS_TOL:g}); worst gradient {g_name} {g_err:.2e} of its "
@@ -3445,6 +3509,591 @@ def _eval_split(ev):
             f"exports {ev['tail_exports_s']:.2f}s)")
 
 
+# ----------------------------------------------------------- the brick route
+def brick_convs(backbone, levels, train=False):
+    """k3 convs of one Res16UNet forward at `levels`, from
+    models/backbone.py: the stem and block 8 at level 0, blocks 1 and 7 at
+    level 1, 2 and 6 at 2, 3 and 5 at 3, block 4 at 4, two convs a block;
+    with `train` the blocks' convs twice (remat recomputes each block in
+    the backward; the stem is no block)."""
+    n = backbone.layers
+    blocks = {0: n[7], 1: n[0] + n[6], 2: n[1] + n[5], 3: n[2] + n[4],
+              4: n[3]}
+    per_block = 4 if train else 2
+    return sum(per_block * blocks[lv] for lv in levels) + (0 in levels)
+
+
+def _with_bricks(batch, levels):
+    """The host batch with the brick tables of `levels` added, as the
+    collator's `brick_levels` builds them (build_brick_graph over the
+    level's padded coords), without collating the scenes again."""
+    import dataclasses
+
+    from unscene3d_torch.ops.brick_engine import build_brick_graph
+    from unscene3d_torch.ops.sparse_graph import SparseGraph
+
+    return dataclasses.replace(batch, graph=SparseGraph(tuple(
+        dataclasses.replace(lv, brick=build_brick_graph(
+            lv.coords.numpy(), lv.valid.numpy())) if i in levels else lv
+        for i, lv in enumerate(batch.graph.levels))))
+
+
+def _log_bricks(batch, levels, what):
+    for lv in levels:
+        level = batch.graph.levels[lv]
+        bg, n = level.brick, int(level.valid.sum())
+        cells = bg.nb_pad * 1008 * 128
+        log(f"  {what} L{lv}: {n} voxels in {bg.nb_pad} bricks "
+            f"({n / max(bg.nb_pad - 1, 1):.1f} voxels a brick, "
+            f"{bg.occ.float().mean().item():.1%} of the cells occupied); "
+            f"one (nb, 1008, 128) brick tensor {cells * 2 / 2**20:.0f} MiB "
+            f"bf16, {cells * 4 / 2**20:.0f} MiB f32")
+
+
+def phase_brick_route(dev, card):
+    """The JAX collator's `brick_levels` through the eval entry point: the
+    bench scene collated with brick_levels=(0, 1) (Predictor's collator)
+    through Mask3D(Res16UNet34C) at conf/model/mask3d.yaml's widths, seeded
+    weights, bf16 and f32, beside the same scene and weights on the gather
+    route. Kernel 7's launches per forward equal the k3 convs of levels 0
+    and 1 (models/backbone.py) and kernel 1's drop by as many; two runs
+    bitwise equal; f32 outputs within SLICE_TOL of the gather route's,
+    bf16 ones within BRICK_BF16_FACTOR x the gather route's own bf16-vs-f32
+    spread; warm forwards, kernel 7's share of the traced device time."""
+    from torch.profiler import ProfilerActivity
+
+    from unscene3d_torch.data.synthetic import make_scene
+    from unscene3d_torch.inference import Predictor, build_mask3d
+
+    t_phase = time.perf_counter()
+    scene = make_scene(**BENCH_SCENE, seed=0)
+    preds = {dt: Predictor(build_mask3d(dt, seed=0), dev, voxel_size=VOXEL)
+             for dt in (torch.float32, torch.bfloat16)}
+    brick = Predictor(preds[torch.float32].model, dev, voxel_size=VOXEL,
+                      brick_levels=BRICK_LEVELS).collator
+    t0 = time.perf_counter()
+    batch, _ = brick([scene])
+    t_brick = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gather, meta = preds[torch.float32].collator([scene])
+    t_gather = time.perf_counter() - t0
+    log(f"brick route: bench scene ({meta.num_voxels[0]} voxels) collate "
+        f"with brick_levels={BRICK_LEVELS} {t_brick:.2f}s, without "
+        f"{t_gather:.2f}s")
+    _log_bricks(batch, BRICK_LEVELS, "bench scene")
+    b, gb = batch.to(dev), gather.to(dev)
+    n_brick = brick_convs(preds[torch.float32].model.backbone, BRICK_LEVELS)
+    per = dict(PER_FORWARD, conv3_fwd=PER_FORWARD["conv3_fwd"] - n_brick,
+               brick_conv3=n_brick)
+    launches = dict.fromkeys(PER_FORWARD, 0)
+    keys = ("backbone_features", "mask_features", "pred_logits",
+            "pred_masks_seg", "pred_masks_vox")
+    gather_out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = preds[dt].model
+        cnt = reset_counters()
+        out = model(b)
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in cnt.items()}
+        if got != per:
+            raise AssertionError(f"brick route {dt}: launches {got}, "
+                                 f"expected {per}")
+        for k in launches:
+            launches[k] += got[k]
+        again = model(b)
+        if not all(torch.equal(out[k], again[k]) for k in keys):
+            raise AssertionError(f"brick route {dt}: two runs differ")
+        ref = model(gb)
+        gather_out[dt] = {k: ref[k].float() for k in keys}
+        errs = []
+        for k in keys:
+            a, r = out[k].float(), gather_out[dt][k]
+            if not torch.isfinite(a).all() or a.shape != r.shape:
+                raise AssertionError(f"brick route {dt} {k}: not finite or "
+                                     f"shape {tuple(a.shape)}")
+            err = (a - r).abs().max().item()
+            if dt == torch.float32:
+                tol = SLICE_TOL * max(r.abs().max().item(), 1e-6)
+            else:
+                tol = BRICK_BF16_FACTOR * (
+                    r - gather_out[torch.float32][k]).abs().max().item()
+            errs.append(f"{k} {err:.3e} (tol {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError(f"brick route {dt} {k}: {err} > {tol}")
+        del out, again, ref
+        warm = cuda_ms(lambda: model(b), reps=5, warmup=1)
+        warm_g = cuda_ms(lambda: model(gb), reps=5, warmup=1)
+        rows, busy, window = _traced(lambda: model(b),
+                                     [ProfilerActivity.CUDA], reps=1)
+        if rows:
+            k7 = sum(r[0] for r in rows if "brick_conv_kernel" in r[1])
+            share = (f"kernel 7 {k7:.1f}ms of {busy:.1f}ms device busy "
+                     f"({k7 / busy:.1%}) in a {window:.1f}ms traced forward")
+        else:
+            share = "kernel 7's share not measured (no device time traced)"
+        log(f"  brick route {str(dt)[6:]}: warm forward (median of 5) "
+            f"{warm:.1f}ms, gather route {warm_g:.1f}ms on the same scene "
+            f"and weights ({warm / warm_g:.2f}x); {share}; two runs bitwise "
+            f"equal; launches {dict((k, v) for k, v in got.items() if v)}; "
+            f"max abs err vs the gather route: {', '.join(errs)}; {card}")
+    del preds, b, gb
+    torch.cuda.empty_cache()
+    log(f"phase brick_route (eval): {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def phase_brick_train(dev, card, host_batch):
+    """Training at a brick level: the train batch with brick_levels=(0,)
+    through build_trainer(f32): one warm-up and one timed step with kernel
+    7's launches (the level's k3 convs and remat's recomputes) and kernel
+    1's asserted, then two steps from one state bitwise equal; beside
+    phase_train_f32's step on the same batch."""
+    from unscene3d_torch.train.loop import build_trainer
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    batch = _with_bricks(host_batch, BRICK_TRAIN_LEVELS)
+    log(f"brick train: tables of level {BRICK_TRAIN_LEVELS} built in "
+        f"{time.perf_counter() - t0:.2f}s")
+    _log_bricks(batch, BRICK_TRAIN_LEVELS, "train batch")
+    b = batch.to(dev)
+    trainer = build_trainer(torch.float32, seed=0, device=dev)
+    n_brick = brick_convs(trainer.model.backbone, BRICK_TRAIN_LEVELS,
+                          train=True)
+    per = dict(PER_TRAIN_STEP,
+               conv3_fwd=PER_TRAIN_STEP["conv3_fwd"] - n_brick,
+               brick_conv3=n_brick)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    times, launches, peak = _timed_steps(trainer, b, gen, 2, per,
+                                         "f32 brick_levels=(0,)")
+    gather = ("gather route not measured in this run" if "f32" not in
+              STEP_STATS else
+              "gather route {:.1f}ms, peak {:.2f} GiB (phase_train_f32, same "
+              "batch)".format(STEP_STATS["f32"][0],
+                              STEP_STATS["f32"][1] / 2**30))
+    log(f"brick train f32, batch {TRAIN_BATCH}, brick_levels="
+        f"{BRICK_TRAIN_LEVELS}: step {times[1]:.1f}ms (first {times[0]:.1f})"
+        f", peak device memory {peak / 2**30:.2f} GiB; {gather}; {card}")
+    phase_train_repeat(dev, trainer, b, "f32 brick_levels=(0,)")
+    del trainer, b
+    torch.cuda.empty_cache()
+    log(f"phase brick_train: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def phase_brick_entry(dev):
+    """One train step through the entry point's functions with
+    `data.collation_functions.train_collation.brick_levels=[0,1]` over
+    scripts/unsupervised/train_unscene3d.sh's overrides, on
+    phase_self_train's 8 scenes: the collator takes the levels, the batch
+    carries the tables, the step's losses are finite and kernel 7 ran the
+    k3 convs of levels 0 and 1."""
+    import tempfile
+
+    from unscene3d_torch.main_instance_segmentation import (build_experiment,
+                                                            get_parameters)
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_self_train_data(f"{tmp}/data")
+        cfg = get_parameters(SELF_TRAIN_ROUND + [
+            f"general.data_dir={tmp}/data",
+            f"data.datasets.validation_dataset.data_dir={tmp}/data",
+            f"data.datasets.test_dataset.data_dir={tmp}/data",
+            f"general.save_dir={tmp}/run",
+            "data.collation_functions.train_collation.brick_levels=[0,1]"])
+        exp = build_experiment(cfg)
+        try:
+            if exp.collator.brick_levels != (0, 1) or exp.device != dev:
+                raise AssertionError("brick entry: the override did not "
+                                     "reach the collator")
+            t0 = time.perf_counter()
+            (batch,) = exp._collate_step(exp._load_scenes(
+                [list(range(TRAIN_BATCH))]))
+            t_collate = time.perf_counter() - t0
+            have = [lv.brick is not None for lv in batch.graph.levels]
+            if have != [True, True, False, False, False]:
+                raise AssertionError(f"brick entry: tables at {have}")
+            n_brick = brick_convs(exp.model.backbone, (0, 1), train=True)
+            cnt = reset_counters()
+            t0 = time.perf_counter()
+            losses = exp.trainer.train_step(
+                batch.to(dev), torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            exp.close()
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    if launches["brick_conv3"] != n_brick or not all(
+            torch.isfinite(losses[k]).all() for k in ("loss_ce", "loss_mask",
+                                                      "loss_dice", "total")):
+        raise AssertionError(f"brick entry: launches {launches}, losses "
+                             f"{losses}")
+    log(f"brick entry point: one f32 step of batch {TRAIN_BATCH} with "
+        f"brick_levels=[0,1] {ms:.1f}ms (first step; collate "
+        f"{t_collate:.1f}s), total={losses['total'].item():.4f}, launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
+def phase_brick_parity(dev):
+    """Card (kernel 7) vs CPU (its twin) on the parity scene, f32, same
+    seeded weights, brick_levels=BRICK_PARITY_LEVELS: the forward and one
+    train step (phase_train_parity's replayed decisions). Level 1 only, to
+    bound the CPU side's time (a forward at levels 0 and 1, 1,280 + 256
+    bricks, took most of a minute on the card's host); level 0 is held to
+    the gather route on the card in phase_brick_route."""
+    from unscene3d_torch.data.collate import FreeMaskCollator
+    from unscene3d_torch.data.synthetic import make_scene
+    from unscene3d_torch.inference import build_mask3d
+
+    t_phase = time.perf_counter()
+    scene = make_scene(num_points=30_000, num_objects=6, extent=4.0, seed=7)
+    batch, meta = FreeMaskCollator(voxel_size=VOXEL, fine_buckets=True,
+                                   fps_queries=100,
+                                   brick_levels=BRICK_PARITY_LEVELS)([scene])
+    model = build_mask3d(torch.float32, seed=0).to(dev)
+    out_gpu = model(batch.to(dev))
+    t0 = time.perf_counter()
+    out_cpu = model.to("cpu")(batch)
+    t_cpu = time.perf_counter() - t0
+    del model
+    for key in ("pred_logits", "pred_masks_seg", "pred_masks_vox"):
+        a, r = out_gpu[key].float().cpu(), out_cpu[key].float()
+        err = (a - r).abs().max().item()
+        scale = max(r.abs().max().item(), 1e-6)
+        log(f"  brick parity {key}: max_rel_err={err / scale:.3e} (tol "
+            f"{SLICE_TOL:g})")
+        if not err <= SLICE_TOL * scale:
+            raise AssertionError(f"brick card vs CPU {key}: {err} > "
+                                 f"{SLICE_TOL} * {scale}")
+    log(f"brick parity forward: {meta.num_voxels[0]} voxels, "
+        f"brick_levels={BRICK_PARITY_LEVELS}, the CPU forward {t_cpu:.1f}s")
+    phase_train_parity(dev, brick_levels=BRICK_PARITY_LEVELS)
+    log(f"phase brick_parity: {time.perf_counter() - t_phase:.1f}s")
+
+
+# ------------------------------------------------------- MinkUNet / ResNet
+def resunet_launches(model, train=False):
+    """Kernel launches of one forward (and backward, with `train`) of a
+    MinkUNet / ResNet (models/resunet.py). MinkUNet: the stem and 2 k3 convs
+    a block (kernel 1), 3 k2 down + 3 up convs (kernel 2); ResNet: the stem,
+    each stage's stride-2 block one stride-1 k3 conv and the others two
+    (kernel 1), its k3 and k1 stride-2 convs (kernel 2, K = 27 and 1), the
+    sum pool (kernel 2's sum). The backward: kernel 4's dx for every
+    kernel-1 conv but the stem, kernel 5's dW for all, kernel 2 again for
+    every kernel-2 conv's dx; the sum pool's dx is a gather."""
+    from unscene3d_torch.models.resunet import MinkUNetBase
+
+    n = model.layers
+    if isinstance(model, MinkUNetBase):
+        k3, k2, pool = 1 + 2 * sum(n), 6, 0
+    else:
+        k3, k2, pool = 1 + sum(2 * m - 1 for m in n), 2 * len(n), 1
+    out = dict.fromkeys(PER_FORWARD, 0)
+    out.update(conv3_fwd=k3, k_apply_gemm=k2, k_apply_sum=pool)
+    if train:
+        out.update(conv3_bwd=k3 - 1, conv3_dw=k3, k_apply_gemm=2 * k2)
+    return out
+
+
+def _resunet_input(scene):
+    """A scene's collated features and its voxels' 6-level graph with the
+    k3 stride-2 maps (ops/kernel_maps.py:build_sparse_graph, the collator's
+    fine buckets: level 0's rows are the collated batch's)."""
+    from unscene3d_torch.data.collate import FreeMaskCollator
+    from unscene3d_torch.ops.kernel_maps import build_sparse_graph
+    from unscene3d_torch.ops.sparse_graph import graph_from_levels
+
+    batch, _ = FreeMaskCollator(voxel_size=VOXEL, fine_buckets=True,
+                                fps_queries=100)([scene])
+    lv0 = batch.graph.levels[0]
+    graph = graph_from_levels(build_sparse_graph(
+        lv0.coords[lv0.valid].numpy(), num_levels=6, fine_buckets=True,
+        build_down_nbr_maps=True))
+    if graph.levels[0].num_padded != lv0.num_padded:
+        raise AssertionError("resunet: level 0 rows differ from the batch's")
+    return batch.features, graph
+
+
+def phase_resunet(dev, card):
+    """The MinkUNet / ResNet families at their default full widths
+    (MinkUNet planes (64, 128, 256, 512, 256, 128, 128), init 64; ResNet
+    (64, 128, 256, 512)), 20 classes, seeded weights, on the bench scene
+    collated over 6 levels with the k3 stride-2 maps: ResUNet34 and
+    ResNet34 eval forwards in bf16 and f32 (launches asserted, two runs
+    bitwise equal), one f32 train forward + backward of each with
+    CrossEntropyLoss on 20 seeded labels (launches, peak memory, two runs
+    bitwise equal); kernel 2 at ResNet34's first K = 27 stride-2 conv and
+    its transposed dx against the twin and the bound; card vs CPU of the
+    f32 forwards on the parity scene."""
+    from unscene3d_torch.data.synthetic import make_scene
+    from unscene3d_torch.losses.criterion import CrossEntropyLoss
+    from unscene3d_torch.models import load_model
+    from unscene3d_torch.models.weights import init_random_
+    from unscene3d_torch.ops.k_apply import k_apply, k_apply_plain
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    feats, graph = _resunet_input(make_scene(**BENCH_SCENE, seed=0))
+    log(f"resunet: bench scene over 6 levels with the k3 stride-2 maps, "
+        f"collate + graph {time.perf_counter() - t0:.2f}s, rows per level "
+        f"{[lv.num_padded for lv in graph.levels]}")
+    graph, feats = graph.to(dev), feats.to(dev)
+    launches = dict.fromkeys(PER_FORWARD, 0)
+
+    def count(fn, want, what):
+        cnt = reset_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: f.launches for k, f in cnt.items()}
+        if got != want:
+            raise AssertionError(f"{what}: launches {got}, expected {want}")
+        for k in launches:
+            launches[k] += got[k]
+        return out
+
+    for name in ("ResUNet34", "ResNet34"):
+        for dt in (torch.float32, torch.bfloat16):
+            model = init_random_(load_model(name)(RESUNET_CLASSES, dtype=dt),
+                                 0).to(dev).eval()
+            with torch.no_grad():
+                fwd = lambda: model(feats, graph)  # noqa: E731
+                out = count(fwd, resunet_launches(model), f"{name} {dt}")
+                again = fwd()
+                ms = cuda_ms(fwd, reps=5, warmup=1)
+            rows = graph.levels[0 if name == "ResUNet34" else 5].num_padded
+            if (tuple(out.shape) != (rows, RESUNET_CLASSES)
+                    or not torch.isfinite(out).all()
+                    or not torch.equal(out, again)):
+                raise AssertionError(f"{name} {dt}: {tuple(out.shape)}, "
+                                     "not finite or two runs differ")
+            log(f"  {name} eval {str(dt)[6:]}: warm forward (median of 5) "
+                f"{ms:.1f}ms, out {tuple(out.shape)}, two runs bitwise "
+                f"equal; {card}")
+            del model, out, again
+        model = init_random_(load_model(name)(RESUNET_CLASSES), 0).to(
+            dev).train()
+        n_out = graph.levels[0 if name == "ResUNet34" else 5]
+        g = torch.Generator().manual_seed(20)
+        labels = torch.where(n_out.valid.cpu(),
+                             torch.randint(0, RESUNET_CLASSES,
+                                           (n_out.num_padded,), generator=g),
+                             255).to(dev)
+        params = list(model.parameters())
+
+        def step():
+            loss = CrossEntropyLoss()(model(feats, graph), labels)
+            return loss, torch.autograd.grad(loss, params)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = count(step, resunet_launches(model, train=True),
+                            f"{name} train")
+        t0 = time.perf_counter()
+        loss2, grads2 = step()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        same = torch.equal(loss, loss2) and all(
+            torch.equal(a, b) for a, b in zip(grads, grads2))
+        if not (same and torch.isfinite(loss) and all(
+                torch.isfinite(gr).all() for gr in grads)):
+            raise AssertionError(f"{name} train: not finite or two runs "
+                                 "differ")
+        log(f"  {name} train f32 forward + backward with CrossEntropyLoss "
+            f"({RESUNET_CLASSES} seeded labels): {ms:.1f}ms (second run), "
+            f"loss {loss.item():.4f}, peak device memory "
+            f"{peak / 2**30:.2f} GiB, two runs bitwise equal; {card}")
+        del model, grads, grads2, params
+        torch.cuda.empty_cache()
+
+    # kernel 2 at ResNet34's first stride-2 conv (levels 1 -> 2, 64 -> 64)
+    fine, coarse = graph.levels[1], graph.levels[2]
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(fine.num_padded, 64, generator=g).to(dev)
+             * fine.valid[:, None]).to(dtype)
+        w = (torch.randn(27, 64, 64, generator=g) / 8).to(dev, dtype)
+        gm = (torch.randn(coarse.num_padded, 64, generator=g).to(dev)
+              * coarse.valid[:, None]).to(dtype)
+        wt = w.transpose(1, 2).contiguous()
+        for what, inp, table, wk, valid in (
+                ("fwd", x, coarse.down_nbr_idx, w, coarse.valid),
+                ("dx", gm, coarse.down_nbr_t, wt, fine.valid)):
+            pairs = hits(table)
+            out_rows = table.shape[1]
+            res[(what, dtype)] = _compare(
+                f"k_apply_gemm K=27 stride-2 L1->L2 64->64 {what}", dtype,
+                lambda: k_apply(inp, table, wk, valid),
+                lambda: k_apply_plain(inp, table, wk, valid),
+                # bytes: the table, the flags, the weights, each source row
+                # the table points at read once, the output written once;
+                # FLOPs over the valid pairs only
+                work=(nbytes(table, valid, wk)
+                      + (distinct_rows(table) + out_rows) * 64
+                      * inp.element_size(),
+                      2 * pairs * 64 * 64, dtype))
+        del x, w, gm, wt
+
+    pfeats, pgraph = _resunet_input(
+        make_scene(num_points=30_000, num_objects=6, extent=4.0, seed=7))
+    for name in ("ResUNet34", "ResNet34"):
+        model = init_random_(load_model(name)(RESUNET_CLASSES), 0).eval()
+        with torch.no_grad():
+            cpu = model(pfeats, pgraph)
+            gpu = model.to(dev)(pfeats.to(dev), pgraph.to(dev)).cpu()
+        err = (gpu - cpu).abs().max().item()
+        scale = max(cpu.abs().max().item(), 1e-6)
+        log(f"  {name} parity (f32, {int(pgraph.levels[0].valid.sum())} "
+            f"voxels): card vs "
+            f"CPU max_rel_err={err / scale:.3e} (tol {SLICE_TOL:g})")
+        if not err <= SLICE_TOL * scale:
+            raise AssertionError(f"{name} card vs CPU: {err} > {SLICE_TOL} "
+                                 f"* {scale}")
+    log(f"phase resunet: {time.perf_counter() - t_phase:.1f}s")
+    return launches, res
+
+
+# -------------------------------------------------------------------- LSeg
+def phase_lseg(dev, card):
+    """LSeg at full width (ViT-L/16, DPT decoder, 512-d features) on seeded
+    random weights: one frame at each of LSEG_FRAMES in f32, timed beside
+    the f32 FLOP bound (torch.utils.flop_counter over the same call, at
+    67 TFLOP/s), the features finite and of unit norm or less;
+    relevance_maps against 20 seeded text embeddings; the tiny
+    configuration on the card against the CPU."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from unscene3d_torch.models.encoders_2d import load_2d_model
+
+    t_phase = time.perf_counter()
+    lseg = load_2d_model("LSegNet")
+    g = torch.Generator().manual_seed(21)
+    text = torch.randn(20, 512, generator=g)
+    t0 = time.perf_counter()
+    net = lseg(image_size=LSEG_FRAMES[0], text_embeddings=text, device=dev)
+    n_params = sum(p.numel() for p in net.model.parameters())
+    log(f"lseg: ViT-L/16 LSeg, {n_params / 1e6:.1f}M f32 params, seeded "
+        f"random weights built in {time.perf_counter() - t0:.1f}s")
+    for h, w in LSEG_FRAMES:
+        img = torch.rand(1, h, w, 3, generator=g).to(dev)
+        out = net(img)
+        norm = torch.linalg.vector_norm(out, dim=-1)
+        if (tuple(out.shape) != (1, h, w, 512) or not torch.isfinite(out).all()
+                or not norm.max().item() <= 1 + 1e-5
+                or not norm.min().item() > 0):
+            raise AssertionError(f"lseg {h}x{w}: {tuple(out.shape)}, norms "
+                                 f"{norm.min().item()}..{norm.max().item()}")
+        ms = cuda_ms(lambda: net(img), reps=5, warmup=1)
+        with FlopCounterMode(display=False) as fc:
+            net(img)
+        flops = fc.get_total_flops()
+        bound = 1e3 * flops / PEAK_FLOPS[torch.float32]
+        log(f"  lseg f32 {h}x{w}: {ms:.2f} ms a frame (CUDA events, median "
+            f"of 5), f32 bound {bound:.3f} ms = {flops / 1e9:.1f} GFLOP / "
+            f"67 TFLOP/s ({bound / ms:.1%} of it); features finite, norms "
+            f"{norm.min().item():.3f}..{norm.max().item():.3f}; {card}")
+    rel = net.relevance_maps(img)
+    if tuple(rel.shape) != (1, h, w, 20) or not torch.isfinite(rel).all():
+        raise AssertionError(f"lseg relevance maps {tuple(rel.shape)}")
+    log(f"  relevance_maps over 20 text embeddings: {tuple(rel.shape)}, "
+        f"logits {rel.min().item():.2f}..{rel.max().item():.2f}")
+    del net, out, rel
+    torch.cuda.empty_cache()
+    img = torch.rand(2, 64, 96, 3, generator=g)
+    card_out = lseg(image_size=(64, 96), tiny=True, seed=3,
+                    device=dev).forward_multi_res(img[None].to(dev))
+    cpu_out = lseg(image_size=(64, 96), tiny=True, seed=3,
+                   device="cpu").forward_multi_res(img[None])
+    errs = []
+    for a, r in zip(card_out, cpu_out):
+        err = (a.cpu() - r).abs().max().item()
+        scale = max(r.abs().max().item(), 1e-6)
+        errs.append(err / scale)
+    log(f"  lseg tiny card vs CPU (out, 1/2, 1/4, 1/8): max_rel_err "
+        f"{', '.join(f'{e:.2e}' for e in errs)} (tol {LSEG_TOL:g})")
+    if not max(errs) <= LSEG_TOL:
+        raise AssertionError(f"lseg tiny card vs CPU: {errs}")
+    log(f"phase lseg: {time.perf_counter() - t_phase:.1f}s")
+
+
+# --------------------------------------------------------------- renderers
+def phase_renderers(dev, card):
+    """Both renderers (pseudo/projection.py) on bench scene 0's voxels at
+    FRAME from a ring camera, 32 seeded features a voxel: the
+    nearest-voxel render and the interpolating one with its gradient to the
+    features, each run twice bitwise equal, kernel 3's launches asserted
+    (one per render, one more in the interpolating render's backward), and
+    held to the same calls on the CPU (the twins), RENDER_TOL relative."""
+    from unscene3d_torch.data.synthetic import ring_poses
+    from unscene3d_torch.pseudo.projection import (
+        render_voxels_to_image, render_voxels_to_image_interpolate)
+
+    t_phase = time.perf_counter()
+    s = _pseudo_scene(0)
+    coords = s["coords"] - s["coords"].min(0)
+    world = (coords.astype(np.float32) + 0.5) * VOXEL
+    centre = (world.min(0) + world.max(0)) / 2
+    pose = ring_poses(centre, 7.0, 2.5, 8)[0].astype(np.float32)
+    K = _scannet_intrinsics(*FRAME).astype(np.float32)
+    g = torch.Generator().manual_seed(22)
+    n = len(coords)
+    host = dict(feats=torch.randn(n, 32, generator=g),
+                world=torch.from_numpy(world),
+                coords=torch.from_numpy(coords.astype(np.int32)),
+                valid=torch.ones(n, dtype=torch.bool),
+                pose=torch.from_numpy(pose), K=torch.from_numpy(K),
+                r=torch.randn(*FRAME, 32, generator=g))
+    dims = tuple(int(d) + 2 for d in coords.max(0))
+
+    def run(t):
+        near = render_voxels_to_image(t["feats"], t["world"], t["valid"],
+                                      t["pose"], t["K"], *FRAME)
+        f = t["feats"].clone().requires_grad_()
+        interp = render_voxels_to_image_interpolate(
+            f, t["coords"], t["valid"], t["pose"], t["K"], *FRAME, dims,
+            voxel_size=VOXEL)
+        (interp[0] * t["r"]).sum().backward()
+        return [near[0], near[1], *interp, f.grad]
+
+    card_in = {k: v.to(dev) for k, v in host.items()}
+    cnt = reset_counters()
+    first = run(card_in)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in cnt.items()}
+    if launches["segment_sum"] != 3 or sum(launches.values()) != 3:
+        raise AssertionError(f"renderers: launches {launches}")
+    again = run(card_in)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("renderers: two runs differ")
+    ms = cuda_ms(lambda: run(card_in), reps=3, warmup=1)
+    cpu = run(host)
+    names = ("image", "hit", "interp image", "weights", "mapping", "grad")
+    errs = []
+    for i, (name, a, r) in enumerate(zip(names, first, cpu)):
+        a, r = a.cpu().float(), r.float()
+        err = (a - r).abs().max().item()
+        scale = max(r.abs().max().item(), 1e-6)
+        tol = RENDER_TOL if i < 2 else INTERP_TOL
+        errs.append(f"{name} {err / scale:.2e} (tol {tol:g})")
+        if not err <= tol * scale:
+            raise AssertionError(f"renderers {name}: card vs CPU {err} > "
+                                 f"{tol} * {scale}")
+    hit = first[1].float().mean().item()
+    covered = (first[3] > 0).float().mean().item()
+    log(f"renderers on bench scene 0 ({n} voxels, grid {dims}, {FRAME[0]}x"
+        f"{FRAME[1]}): both renders + the interpolating one's backward "
+        f"{ms:.1f}ms (CUDA events, median of 3); {hit:.1%} of the pixels "
+        f"hit (nearest), {covered:.1%} with weight (interpolating); two "
+        f"runs bitwise equal; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)}; card vs CPU "
+        f"max_rel_err {', '.join(errs)}; {card}")
+    log(f"phase renderers: {time.perf_counter() - t_phase:.1f}s")
+    return launches
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3455,9 +4104,18 @@ def main(argv) -> int:
         # the data-parallel phase alone (on a machine of several cards too)
         phase_train_dp(dev, card, train_batch())
         return 0
-    if argv in (["--phase", "supervised"], ["--phase", "eval_clis"]):
-        {"supervised": phase_supervised,
-         "eval_clis": phase_eval_clis}[argv[1]](dev, card)
+    if argv in (["--phase", "supervised"], ["--phase", "eval_clis"],
+                ["--phase", "resunet"], ["--phase", "lseg"],
+                ["--phase", "renderers"]):
+        {"supervised": phase_supervised, "eval_clis": phase_eval_clis,
+         "resunet": phase_resunet, "lseg": phase_lseg,
+         "renderers": phase_renderers}[argv[1]](dev, card)
+        return 0
+    if argv == ["--phase", "brick_route"]:
+        phase_brick_route(dev, card)
+        phase_brick_train(dev, card, train_batch())
+        phase_brick_entry(dev)
+        phase_brick_parity(dev)
         return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -3518,11 +4176,20 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     launches["train_noise_robust"], nr_res = phase_train_noise_robust(
         dev, card, tbatch_host)
+    torch.cuda.empty_cache()
+    launches["brick_route"] = phase_brick_route(dev, card)
+    launches["brick_train"] = phase_brick_train(dev, card, tbatch_host)
+    launches["brick_entry"] = phase_brick_entry(dev)
+    phase_brick_parity(dev)
     del tbatch_host
     launches["train_options"] = phase_train_options(dev, card, batches[()])
     torch.cuda.empty_cache()
     launches["supervised"] = phase_supervised(dev, card)
     phase_eval_clis(dev, card)
+    torch.cuda.empty_cache()
+    launches["resunet"], k27 = phase_resunet(dev, card)
+    phase_lseg(dev, card)
+    launches["renderers"] = phase_renderers(dev, card)
 
     main_case = {"conv3_fwd": (0, 128, 96, torch.bfloat16),
                  "k_apply_gemm": ("up", torch.bfloat16),
@@ -3552,6 +4219,12 @@ def main(argv) -> int:
                 kernels[-1].update({f"triplane_c{c}_{k}": r[k] for k in (
                     "ms", "plain_ms", "bound_ms", "library_ms",
                     "max_abs_err")})
+        if name == "k_apply_gemm":   # the K = 27 stride-2 conv and its dx
+            for (what, dt), r in k27.items():
+                kernels[-1].update({
+                    f"k27_stride2_{what}_{str(dt)[6:]}_{k}": r[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "bound_by",
+                        "max_abs_err")})
         if name in ("csr_conv3", "win_decompose"):   # beside kernel 1
             kernels[-1].update(kernel1_ms=m["other_ms"])
         if name == "csr_conv3":

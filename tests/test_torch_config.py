@@ -121,10 +121,12 @@ def test_dtype_strings_become_torch_dtypes(name, dtype):
 
 
 def test_unported_target_raises_without_importing_jax():
-    mod = "unscene3d_tpu.models.resunet"
+    """A target in a module the port leaves out on purpose (README "Left
+    out of the port") raises ImportError and imports no JAX module."""
+    mod = "unscene3d_tpu.ops.pointops2"
     before = mod in sys.modules
-    with pytest.raises(ImportError, match="unscene3d_tpu.models.resunet"):
-        instantiate({"_target_": f"{mod}.ResUNet14A", "out_channels": 3})
+    with pytest.raises(ImportError, match="unscene3d_tpu.ops.pointops2"):
+        instantiate({"_target_": f"{mod}.attention_step1", "q": 3})
     assert (mod in sys.modules) == before
 
 

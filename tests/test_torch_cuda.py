@@ -485,3 +485,151 @@ def test_autograd_functions_on_the_card(cuda, levels):
         (out * out.detach()).sum().backward()
         grads.append(xd.grad.cpu())
     _close(grads[1], grads[0], torch.float32, tol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def brick_levels():
+    """The `levels` scene collated with `brick_levels=(0,)`."""
+    scene = make_scene(num_points=12_000, num_objects=4, extent=3.0, seed=3)
+    batch, _ = FreeMaskCollator(voxel_size=0.02, fps_queries=8,
+                                brick_levels=(0,))([scene])
+    return batch.graph.levels
+
+
+@pytest.fixture(scope="module")
+def stride2_levels(brick_levels):
+    """The same voxels' graph with the k3 stride-2 maps."""
+    from unscene3d_torch.ops.kernel_maps import build_sparse_graph
+    from unscene3d_torch.ops.sparse_graph import graph_from_levels
+
+    lv0 = brick_levels[0]
+    return graph_from_levels(build_sparse_graph(
+        lv0.coords[lv0.valid].numpy(), build_down_nbr_maps=True)).levels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,epi", [(3, 32, "none"), (96, 96, "all"),
+                                          (128, 96, "bias")])
+def test_sparse_conv3_at_a_brick_level_runs_kernel_7(cuda, brick_levels,
+                                                     dtype, cin, cout, epi):
+    """sparse_conv3 at a level with brick tables launches kernel 7 once
+    (never kernel 1 or the twin) and matches the same call on the CPU (the
+    twin) and kernel 1 on the level's neighbour map; two runs bitwise
+    equal."""
+    lvl = brick_levels[0].to(cuda)
+    g = torch.Generator().manual_seed(cin + cout)
+    x = (torch.randn(lvl.num_padded, cin, generator=g).to(cuda)
+         * lvl.valid[:, None]).to(dtype)
+    w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(cuda, dtype)
+    kw = {}
+    if epi == "all":
+        kw = dict(scale=torch.rand(cout, generator=g).add(0.5).to(cuda),
+                  shift=torch.randn(cout, generator=g).to(cuda),
+                  residual=torch.randn(lvl.num_padded, cout,
+                                       generator=g).to(cuda, dtype),
+                  relu=True)
+    elif epi == "bias":
+        kw = dict(bias=torch.randn(cout, generator=g).to(cuda))
+    before = be.brick_conv3.launches, conv3_fwd.launches
+    twin_calls = []
+    real = be.brick_conv3_plain
+    be.brick_conv3_plain = lambda *a, **k: (twin_calls.append(1),
+                                            real(*a, **k))[1]
+    try:
+        got = conv_ops.sparse_conv3(x, w, lvl, **kw)
+        again = conv_ops.sparse_conv3(x, w, lvl, **kw)
+    finally:
+        be.brick_conv3_plain = real
+    torch.cuda.synchronize()
+    assert (be.brick_conv3.launches, conv3_fwd.launches) == (
+        before[0] + 2, before[1]) and not twin_calls
+    assert torch.equal(got, again)
+    cpu = conv_ops.sparse_conv3(x.cpu(), w.cpu(), brick_levels[0],
+                                **{k: v.cpu() if torch.is_tensor(v) else v
+                                   for k, v in kw.items()})
+    _close(got.cpu(), cpu, dtype)
+    plain = dataclasses.replace(lvl, brick=None)
+    _close(got, conv_ops.sparse_conv3(x, w, plain, **kw), dtype)
+
+
+def test_brick_autograd_function_on_the_card(cuda, brick_levels):
+    """_BrickConv3 on the card: kernel 7 forward, kernels 4 and 5 backward,
+    against the same Function on the CPU, f32; two backwards bitwise."""
+    g = torch.Generator().manual_seed(11)
+    base = brick_levels[0]
+    x = torch.randn(base.num_padded, 24, generator=g) * base.valid[:, None]
+    w = torch.randn(27, 24, 40, generator=g) * 0.2
+    res = {}
+    for dev in ("cpu", cuda, cuda):
+        lv = base.to(dev)
+        xd = x.clone().to(dev).requires_grad_()
+        wd = w.clone().to(dev).requires_grad_()
+        before = be.brick_conv3.launches, conv3_bwd.launches
+        out = conv_ops.sparse_conv3(xd, wd, lv)
+        (out * out.detach()).sum().backward()
+        got = [t.detach().cpu() for t in (out, xd.grad, wd.grad)]
+        if dev != "cpu":
+            assert (be.brick_conv3.launches, conv3_bwd.launches) == (
+                before[0] + 1, before[1] + 1)
+            if "cuda" in res:
+                assert all(torch.equal(a, b)
+                           for a, b in zip(got, res["cuda"]))
+        res[str(dev)] = got
+    for a, b in zip(res["cuda"], res["cpu"]):
+        _close(a, b, torch.float32, tol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lv,cin,cout", [(1, 32, 64), (2, 64, 128),
+                                         (1, 3, 40)])
+def test_k_apply_k27_stride2_and_its_transpose_match_twin(
+        cuda, stride2_levels, dtype, lv, cin, cout):
+    """Kernel 2 at K = 27 over the cross-level k3 stride-2 map (fine rows
+    into coarse rows) and over its transposed map (the dx: coarse rows into
+    fine rows, W^T), against the plain twin; bitwise repeatable."""
+    fine, coarse = (stride2_levels[lv - 1].to(cuda),
+                    stride2_levels[lv].to(cuda))
+    g = torch.Generator().manual_seed(lv * 100 + cin)
+    x = (torch.randn(fine.num_padded, cin, generator=g).to(cuda)
+         * fine.valid[:, None]).to(dtype)
+    w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(cuda, dtype)
+    gm = (torch.randn(coarse.num_padded, cout, generator=g).to(cuda)
+          * coarse.valid[:, None]).to(dtype)
+    wt = w.transpose(1, 2).contiguous()
+    for inp, table, wk, valid in ((x, coarse.down_nbr_idx, w, coarse.valid),
+                                  (gm, coarse.down_nbr_t, wt, fine.valid)):
+        got = k_apply(inp, table, wk, valid)
+        again = k_apply(inp, table, wk, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _close(got, k_apply_plain(inp, table, wk, valid), dtype)
+
+
+def test_stride2_autograd_functions_on_the_card(cuda, stride2_levels):
+    """The k3 and k1 stride-2 convs and the sum pool (kernel 2 forward and
+    dx) against the same Functions on the CPU, f32."""
+    L = stride2_levels
+    g = torch.Generator().manual_seed(12)
+    cases = {
+        "k3down2": (lambda x, w, lv: conv_ops.sparse_conv3_down2(
+            x, w, lv[1], fine=lv[0]), (27, 24, 40)),
+        "k1down2": (lambda x, w, lv: conv_ops.sparse_conv1_down2(
+            x, w, lv[1], fine=lv[0]), (24, 40)),
+        "sum_pool2": (lambda x, w, lv: conv_ops.sum_pool2(x, lv[1], lv[0]),
+                      None),
+    }
+    for name, (fn, ws) in cases.items():
+        x = torch.randn(L[0].num_padded, 24, generator=g) * L[0].valid[:, None]
+        w = None if ws is None else torch.randn(*ws, generator=g) * 0.2
+        res = {}
+        for dev in ("cpu", cuda):
+            lv = [lvl.to(dev) for lvl in L[:2]]
+            xd = x.clone().to(dev).requires_grad_()
+            wd = None if w is None else w.clone().to(dev).requires_grad_()
+            out = fn(xd, wd, lv)
+            (out * out.detach()).sum().backward()
+            res[str(dev)] = [t.detach().cpu() for t in
+                             (out, xd.grad, None if wd is None else wd.grad)
+                             if t is not None]
+        for a, b in zip(res["cuda"], res["cpu"]):
+            _close(a, b, torch.float32, tol=1e-4)

@@ -78,7 +78,11 @@ from unscene3d_torch.pseudo.features import aggregate_features
 from unscene3d_torch.pseudo.freemask_query import (cosine_sim,
                                                    freemask_query_masks)
 from unscene3d_torch.pseudo.pipeline import PseudoMaskPipeline
-from unscene3d_torch.pseudo.projection import project_2d_features
+from unscene3d_torch.ops.segment_pool import (device_segment_order,
+                                              segment_order, segment_pieces)
+from unscene3d_torch.pseudo.projection import (
+    project_2d_features, render_voxels_to_image,
+    render_voxels_to_image_interpolate)
 
 TAU = 0.7
 CFG = dict(affinity_tau=TAU, min_segment_size=2, max_number_of_instances=6)
@@ -502,6 +506,100 @@ def test_project_2d_features_matches_jax(reference_average):
         assert (gc.numpy()[-2:] == 0).all() and not gc.numpy()[~valid].any()
 
 
+def _render_scene():
+    """test_project_2d_features_matches_jax's points: a near wall, far
+    points, one behind the camera and one outside the frame."""
+    rng = np.random.RandomState(2)
+    xs, ys = np.meshgrid(np.linspace(-0.5, 0.5, 40),
+                         np.linspace(-0.5, 0.5, 40))
+    near = np.column_stack([xs.ravel(), ys.ravel(), np.full(xs.size, 2.0)])
+    far = np.column_stack([rng.uniform(-0.6, 0.6, (200, 2)),
+                           rng.uniform(2.5, 5.0, 200)])
+    pts = np.vstack([near, far, [[0, 0, -2.0], [50.0, 0, 3.0]]])
+    valid = rng.rand(len(pts)) > 0.05
+    pose = np.eye(4, dtype=np.float32)
+    pose[0, 3] = 0.1
+    return (pts.astype(np.float32), valid, pose,
+            rng.randn(len(pts), 4).astype(np.float32))
+
+
+def test_render_voxels_to_image_matches_jax():
+    """The nearest-voxel render and its gradient to the features against
+    the JAX function and jax.grad: image rtol 1e-6 / atol 1e-6, hit mask
+    equal; the device order equals the host's segment_order."""
+    H = W = 32
+    K = np.array([[30.0, 0, W / 2], [0, 30.0, H / 2], [0, 0, 1]], np.float32)
+    pts, valid, pose, vf = _render_scene()
+    r = np.random.RandomState(3).randn(H, W, 4).astype(np.float32)
+
+    def jfn(f):
+        return jprojection.render_voxels_to_image(
+            f, jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(pose),
+            jnp.asarray(K), H, W)
+
+    want, want_hit = jfn(jnp.asarray(vf))
+    want_g = jax.grad(lambda f: (jfn(f)[0] * r).sum())(jnp.asarray(vf))
+    t = torch.from_numpy
+    f = t(vf).requires_grad_()
+    got, hit = render_voxels_to_image(f, t(pts), t(valid), t(pose), t(K),
+                                      H, W)
+    (got * t(r)).sum().backward()
+    np.testing.assert_array_equal(hit.numpy(), np.asarray(want_hit))
+    assert 0 < hit.numpy().mean() < 1
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(f.grad.numpy(), np.asarray(want_g),
+                               rtol=1e-6, atol=1e-6)
+    ids = torch.randint(-2, 12, (500,), generator=torch.Generator()
+                        .manual_seed(0))
+    ok = torch.rand(500, generator=torch.Generator().manual_seed(1)) > 0.2
+    order, offsets, pieces = device_segment_order(ids, 10, ok)
+    h_order, h_offsets = segment_order(ids.numpy(), 10, ok.numpy())
+    np.testing.assert_array_equal(order.numpy(), h_order)
+    np.testing.assert_array_equal(offsets.numpy(), h_offsets)
+    np.testing.assert_array_equal(pieces.numpy(), segment_pieces(h_offsets))
+
+
+def test_render_interpolate_matches_jax_with_its_gradient():
+    """tests/test_projection.py's slab scene: the image, the weight image
+    and the per-voxel weight sums rtol 1e-6 / atol 1e-6 against the JAX
+    function; the gradient of sum(image * r) to the features against
+    jax.grad at the same tolerance."""
+    D = 12
+    coords = np.asarray([[x, y, 5] for x in range(2, 10) for y in range(2, 10)]
+                        + [[x, y, 6] for x in range(2, 10)
+                           for y in range(2, 10) if (x + y) % 3 == 0],
+                        np.int32)
+    n = len(coords)
+    rng = np.random.RandomState(0)
+    feats = rng.rand(n, 4).astype(np.float32)
+    H = W = 16
+    K = np.array([[20.0, 0, W / 2], [0, 20.0, H / 2], [0, 0, 1]], np.float32)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [6.0, 6.0, 0.0]
+    r = rng.randn(H, W, 4).astype(np.float32)
+
+    def jfn(f):
+        return jprojection.render_voxels_to_image_interpolate(
+            f, jnp.asarray(coords), jnp.ones(n, bool), jnp.asarray(pose),
+            jnp.asarray(K), H, W, (D, D, D), voxel_size=1.0)
+
+    want = jfn(jnp.asarray(feats))
+    want_g = jax.grad(lambda f: (jfn(f)[0] * r).sum())(jnp.asarray(feats))
+    t = torch.from_numpy
+    f = t(feats).requires_grad_()
+    got = render_voxels_to_image_interpolate(
+        f, t(coords), torch.ones(n, dtype=torch.bool), t(pose), t(K), H, W,
+        (D, D, D), voxel_size=1.0)
+    (got[0] * t(r)).sum().backward()
+    for g, w, name in zip(got, want, ("image", "weights", "mapping")):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+    assert (np.asarray(want[1]) > 0).sum() > 10 and f.grad.abs().sum() > 0
+    np.testing.assert_allclose(f.grad.numpy(), np.asarray(want_g),
+                               rtol=1e-6, atol=1e-6)
+
+
 # ------------------------------------------------------ backbone and pipeline
 @pytest.fixture(scope="module")
 def small_graph():
@@ -622,8 +720,8 @@ def test_pipeline_query_method_matches_jax(pipeline_pair):
 def test_pipeline_unported_options_raise():
     with pytest.raises(ValueError):
         PseudoMaskPipeline(modality="depth", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        load_2d_model("LSegNet")
+    # LSegNet is ported (tests/test_torch_lseg.py): the name resolves
+    assert load_2d_model("LSegNet").__name__ == "LSegNet"
     with pytest.raises(KeyError, match="unknown 2d model"):
         load_2d_model("CLIPNet")
     pipe = PseudoMaskPipeline(device="cpu")
@@ -632,3 +730,27 @@ def test_pipeline_unported_options_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             PseudoMaskPipeline()        # the default device is the card
+
+
+def test_scannet_constants_and_label_map_equal_jax(tmp_path):
+    """The label tables are the JAX module's; `load_label_map` reads a
+    scannetv2-labels.combined.tsv to the same dicts, rows without an
+    integer id skipped."""
+    from unscene3d_tpu.data import scannet_constants as jconst
+    from unscene3d_torch.data import scannet_constants as const
+
+    for name in ("VALID_CLASS_IDS_20", "CLASS_LABELS_20",
+                 "VALID_CLASS_IDS_200", "CLASS_LABELS_200",
+                 "FLOOR_WALL_RAW_IDS", "HEAD_CATS_SCANNET_200",
+                 "COMMON_CATS_SCANNET_200", "TAIL_CATS_SCANNET_200"):
+        assert getattr(const, name) == getattr(jconst, name), name
+    assert len(const.CLASS_LABELS_200) == len(const.VALID_CLASS_IDS_200)
+    tsv = tmp_path / "scannetv2-labels.combined.tsv"
+    tsv.write_text("id\traw_category\tcategory\tnyu40id\n"
+                   "1\twall\twall\t1\n2\tchair\tchair\t5\n"
+                   "22\tkitchen counter\tcounter\t12\n7\tbox\tbox\t\n")
+    for to in ("id", "nyu40id"):
+        assert const.load_label_map(str(tsv), to) == \
+            jconst.load_label_map(str(tsv), to)
+    assert const.load_label_map(str(tsv), "nyu40id") == {
+        "wall": 1, "chair": 5, "kitchen counter": 12}

@@ -215,6 +215,28 @@ def test_2d_features_match_jax(layout):
     assert np.abs(got - want).max() <= FEATURE_TOL * np.abs(want).max()
 
 
+def test_2d_features_mean_over_hit_frames_match_jax(layout):
+    """`reference_average=False` on both sides: each voxel's mean over the
+    frames that hit it (unscene3d_tpu/pseudo/pipeline.py:88-99), at
+    test_2d_features_match_jax's tolerance; it differs from the pairwise
+    mean where a voxel is hit more than once."""
+    scene = _dataset(scannet_pseudo, layout)[0]
+    jpipe = jpipeline.PseudoMaskPipeline(modality="color",
+                                         dino_weights=layout["dino"],
+                                         reference_average=False)
+    want = jpipe._encode_2d(scene)
+    pipe = PseudoMaskPipeline(modality="color", dino_weights=layout["dino"],
+                              device="cpu", reference_average=False)
+    got = pipe._encode_2d(scene)
+    hit = np.abs(want).sum(1) > 0
+    np.testing.assert_array_equal(np.abs(got).sum(1) > 0, hit)
+    assert np.abs(got - want).max() <= FEATURE_TOL * np.abs(want).max()
+    pairwise = PseudoMaskPipeline(modality="color", device="cpu",
+                                  dino_weights=layout["dino"])._encode_2d(
+                                      scene)
+    assert np.abs(pairwise - got).max() > FEATURE_TOL * np.abs(want).max()
+
+
 def test_csc_checkpoint_features_match_jax(layout):
     scene = _dataset(scannet_pseudo, layout)[1]
     want = JaxCSC(variables=jax_load_csc(layout["csc"]))(scene["coords"],

@@ -16,7 +16,9 @@ tables `up_idx` that the up2 conv gathers through, and with
 `build_triplane` kernel 3's tri-plane tables. With `csr_levels` (the
 JAX collator's `data.csr_levels`) those levels are padded to 256 rows and
 carry the valid-pair tables of kernel 6, ragged and exact where the JAX
-collator buckets them for static shapes.
+collator buckets them for static shapes. With `brick_levels` (the JAX
+collator's argument) those levels carry the brick tables of kernel 7
+(ops/brick_engine.py), and their k3 convs run through it.
 """
 
 from __future__ import annotations
@@ -192,7 +194,8 @@ class FreeMaskCollator:
     has no effect: the window engine is how the TPU computed the k3 conv,
     and the port's kernel 1 reads the level's (27, N) map at every level.
     `build_triplane=True` adds the noise-robust loss's tri-plane maps and
-    kernel-3 tables (`SceneBatch.triplane`).
+    kernel-3 tables (`SceneBatch.triplane`). `brick_levels` names the levels
+    whose k3 convs run over dense 8^3 bricks (kernel 7).
 
     `__call__(scenes)` is `collate(prepare(scenes))`: `prepare` is the
     scene-level step that draws random numbers (MergeCollator's merge;
@@ -207,7 +210,8 @@ class FreeMaskCollator:
                  fine_buckets: bool = False, fps_queries: int = 100,
                  csr_levels: tuple = (), native: bool = True,
                  win_levels: tuple = (), build_triplane: bool = False,
-                 small_crops: bool = False, very_small_crops: bool = False):
+                 small_crops: bool = False, very_small_crops: bool = False,
+                 brick_levels: tuple = ()):
         self.voxel_size = voxel_size
         self.num_levels = num_levels
         self.seg_align = seg_align
@@ -215,6 +219,8 @@ class FreeMaskCollator:
         self.fps_queries = int(fps_queries)
         # levels whose k3 convs run over compacted valid pairs (kernel 6)
         self.csr_levels = tuple(csr_levels)
+        # levels whose k3 convs run over dense bricks (kernel 7)
+        self.brick_levels = tuple(brick_levels)
         self.native = bool(native)
         self.small_crops = bool(small_crops)
         self.very_small_crops = bool(very_small_crops)
@@ -274,7 +280,8 @@ class FreeMaskCollator:
         levels = build_sparse_graph(coords_all, self.num_levels,
                                     fine_buckets=self.fine_buckets,
                                     csr_levels=self.csr_levels,
-                                    native=self.native)
+                                    native=self.native,
+                                    brick_levels=self.brick_levels)
         n0_pad = len(levels[0]["valid"])
 
         c_in = per_scene[0]["feats"].shape[1]

@@ -19,7 +19,9 @@ full-resolution route, as experiment.py:853-862).
 
 `csr_levels` is the collator's `data.csr_levels` (conf/data/indoor.yaml): at
 those levels the batch carries valid-pair tables and every k3 conv runs
-through kernel 6 (ops/csr_conv.py) instead of kernel 1.
+through kernel 6 (ops/csr_conv.py) instead of kernel 1. `brick_levels` is
+the JAX collator's argument of that name: those levels carry dense-brick
+tables and their k3 convs run through kernel 7 (ops/brick_engine.py).
 """
 
 from __future__ import annotations
@@ -87,8 +89,9 @@ class Predictor:
 
     def __init__(self, model: Mask3D, device="cuda", voxel_size: float = 0.02,
                  fine_buckets: bool = True, csr_levels: tuple = (),
-                 use_dbscan: bool = False, dbscan_eps: float = 0.95,
-                 dbscan_min_points: int = 1, **post_options):
+                 brick_levels: tuple = (), use_dbscan: bool = False,
+                 dbscan_eps: float = 0.95, dbscan_min_points: int = 1,
+                 **post_options):
         unknown = set(post_options) - set(EVAL_DEFAULTS)
         if unknown:
             raise TypeError(f"unknown post-processing options {unknown}")
@@ -98,7 +101,8 @@ class Predictor:
         self.collator = FreeMaskCollator(voxel_size=voxel_size,
                                          fine_buckets=fine_buckets,
                                          fps_queries=model.num_queries,
-                                         csr_levels=csr_levels)
+                                         csr_levels=csr_levels,
+                                         brick_levels=brick_levels)
         self.use_dbscan = bool(use_dbscan)
         self.dbscan_eps = float(dbscan_eps)
         self.dbscan_min_points = int(dbscan_min_points)

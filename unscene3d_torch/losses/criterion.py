@@ -176,3 +176,23 @@ class SetCriterion:
         t_valid = targets.valid[None] & (matched_q >= 0)
         return triplane_losses(pred.reshape(-1, L, T), t_norm, tri, valid,
                                t_valid)
+
+
+class CrossEntropyLoss:
+    """Plain semantic-segmentation cross entropy with an ignore index
+    (unscene3d_tpu/losses/criterion.py:CrossEntropyLoss, reference
+    conf/loss/cross_entropy.yaml -> torch.nn.CrossEntropyLoss): the
+    criterion of the MinkUNet / ResNet semantic baselines. The log-softmax
+    in f32, the mean over the labels that are not `ignore_index` (0 when
+    every label is)."""
+
+    def __init__(self, ignore_index: int = 255):
+        self.ignore_index = int(ignore_index)
+
+    def __call__(self, logits, labels):
+        logp = F.log_softmax(logits.float(), dim=-1)
+        valid = labels != self.ignore_index
+        safe = torch.clamp(labels.long(), 0, logits.shape[-1] - 1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+        nll = torch.where(valid, nll, torch.zeros_like(nll))
+        return nll.sum() / torch.clamp_min(valid.sum(), 1)

@@ -3,21 +3,18 @@ unscene3d_tpu/models/encoders_2d/__init__.py; reference
 models/encoders_2d/__init__.py:16-29)."""
 
 from unscene3d_torch.models.encoders_2d.dino import DinoNet, ViTExtractor
+from unscene3d_torch.models.encoders_2d.lseg import LSegFeatureNet, LSegNet
 
-__all__ = ["DinoNet", "ViTExtractor", "load_2d_model"]
+__all__ = ["DinoNet", "LSegFeatureNet", "LSegNet", "ViTExtractor",
+           "load_2d_model"]
 
-_MODELS_2D = {"DinoNet": DinoNet}
-_NOT_PORTED = {"LSegNet": "ROADMAP.md Queue 1 item 10 "
-                          "(models/encoders_2d/lseg.py)"}
+_MODELS_2D = {"DinoNet": DinoNet, "LSegNet": LSegNet}
 
 
 def load_2d_model(name: str):
-    """The 2D encoder class of that name; LSegNet raises
-    NotImplementedError (not ported yet), an unknown name KeyError."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"2d model {name!r} is not ported yet: "
-                                  f"{_NOT_PORTED[name]}")
+    """The 2D encoder class of that name; an unknown name raises
+    KeyError."""
     if name not in _MODELS_2D:
-        known = sorted([*_MODELS_2D, *_NOT_PORTED])
-        raise KeyError(f"unknown 2d model {name!r}; known: {known}")
+        raise KeyError(f"unknown 2d model {name!r}; known: "
+                       f"{sorted(_MODELS_2D)}")
     return _MODELS_2D[name]

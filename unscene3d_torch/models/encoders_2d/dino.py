@@ -104,22 +104,27 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    """fc1 -> GELU (`gelu`: 'tanh', flax's default, or 'none', the exact
+    erf form) -> fc2."""
+
+    def __init__(self, dim: int, hidden: int, gelu: str = "tanh"):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.gelu = gelu
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return self.fc2(F.gelu(self.fc1(x), approximate=self.gelu))
 
 
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 gelu: str = "tanh"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), gelu)
 
     def forward(self, x):
         x = x + self.attn(self.norm1(x))

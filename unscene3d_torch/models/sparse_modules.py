@@ -1,11 +1,13 @@
 """Sparse-conv modules (counterpart of unscene3d_tpu/models/sparse_modules.py).
 
 Parameter layouts equal the JAX package's, so the weight bridge is a copy:
-k3 kernels (27, Cin, Cout), k2 kernels (8, Cin, Cout), k1 kernels (Cin, Cout).
+k3 kernels (27, Cin, Cout) (also the k3 stride-2 `k3down2`), k2 kernels (8,
+Cin, Cout), k1 kernels (Cin, Cout) (also the k1 stride-2 `k1down2`).
 
 Eval (`module.eval()`) folds BatchNorm into the conv epilogue; training
 (`module.train()`) runs conv -> BatchNorm on batch statistics -> ReLU as the
-JAX train branch does.
+JAX train branch does. A stride-2 BasicBlock runs the unfolded branch in
+eval too, BatchNorm on its running statistics, as the JAX block does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from unscene3d_torch.ops import conv_ops
 from unscene3d_torch.ops.conv3 import epilogue
 from unscene3d_torch.ops.sparse_graph import LevelGraph
 
-_KERNEL_OFFSETS = {"k3": 27, "down2": 8, "up2": 8}
+_KERNEL_OFFSETS = {"k3": 27, "down2": 8, "up2": 8, "k3down2": 27}
 # default torch-style momentum of the running BatchNorm statistics, the
 # reference's bn_momentum (unscene3d_tpu/models/sparse_modules.py:116); the
 # backbone passes its own `bn_momentum` to every SparseBatchNorm
@@ -25,9 +27,10 @@ _BN_MOMENTUM = 0.02
 
 
 class SparseConv(nn.Module):
-    """Sparse convolution; `kind` in 'k3', 'k1', 'down2', 'up2'. For 'down2'
-    pass the coarse LevelGraph (and the fine one as `other` for the
-    backward), for 'up2' the fine one (and the coarse one as `other`).
+    """Sparse convolution; `kind` in 'k3', 'k1', 'down2', 'up2', 'k3down2',
+    'k1down2'. For 'down2', 'k3down2' and 'k1down2' pass the coarse
+    LevelGraph (and the fine one as `other` for the backward), for 'up2'
+    the fine one (and the coarse one as `other`).
 
     `dtype` is the compute dtype: x and the kernel are cast to it at every
     call, as flax casts its params. The kernel is stored in `dtype` by
@@ -39,7 +42,7 @@ class SparseConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kind: str = "k3",
                  use_bias: bool = False, dtype=torch.float32):
         super().__init__()
-        if kind == "k1":
+        if kind in ("k1", "k1down2"):
             shape = (in_channels, out_channels)
         elif kind in _KERNEL_OFFSETS:
             shape = (_KERNEL_OFFSETS[kind], in_channels, out_channels)
@@ -66,6 +69,12 @@ class SparseConv(nn.Module):
         elif self.kind == "down2":
             out = conv_ops.sparse_conv_down2(x, w, level, self.bias,
                                              fine=other)
+        elif self.kind == "k3down2":
+            out = conv_ops.sparse_conv3_down2(x, w, level, self.bias,
+                                              fine=other)
+        elif self.kind == "k1down2":
+            out = conv_ops.sparse_conv1_down2(x, w, level, self.bias,
+                                              fine=other)
         else:
             out = conv_ops.sparse_conv_up2(x, w, level, self.bias,
                                            coarse=other)
@@ -80,9 +89,11 @@ class SparseBatchNorm(nn.Module):
     """BatchNorm over valid rows only (sparse_modules.py:111-162).
 
     Eval: `fold()` gives the affine constants scale = rsqrt(var + eps) *
-    gamma, shift = beta - mean * scale for a conv epilogue. Training:
-    `forward` normalises with the batch statistics of the valid rows in f32
-    (biased variance) and keeps (mean, unbiased variance) in `batch_stats`;
+    gamma, shift = beta - mean * scale for a conv epilogue, and `forward`
+    normalises with the running statistics (the JAX eval branch, for the
+    blocks that do not fold). Training: `forward` normalises with the batch
+    statistics of the valid rows in f32 (biased variance) and keeps (mean,
+    unbiased variance) in `batch_stats`;
     `update_running_stats()` then moves the running estimates by the
     torch-style momentum m = `momentum`: running = (1 - m) * running +
     m * batch. The update is a separate call, like flax's mutated `batch_stats`, so a
@@ -105,8 +116,12 @@ class SparseBatchNorm(nn.Module):
         return inv, self.bias - self.mean * inv
 
     def forward(self, x, valid):
-        """Training forward: (N, C) -> (N, C) in `dtype`, zero on invalid
-        rows."""
+        """(N, C) -> (N, C) in `dtype`, zero on invalid rows: batch
+        statistics in training, the running ones in eval."""
+        if not self.training:
+            inv = torch.rsqrt(self.var + self.epsilon)
+            y = (x.float() - self.mean) * inv * self.scale + self.bias
+            return (y * valid[:, None].to(torch.float32)).to(self.dtype)
         w = valid.to(torch.float32)
         cnt = torch.clamp_min(w.sum(), 1.0)
         xf = x.float()
@@ -131,30 +146,41 @@ class SparseBatchNorm(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    """Residual basic block, stride 1. Eval (sparse_modules.py:183-202):
+    """Residual basic block. Stride 1, eval (sparse_modules.py:183-202):
     conv1 + folded BN + ReLU, then conv2 + folded BN + residual + ReLU, both
-    in kernel 1; a k1 conv + folded BN shortcut when the width changes.
-    Training (:204-223): conv -> BN -> ReLU -> conv -> BN (+ k1/BN shortcut)
-    -> ReLU(out + residual)."""
+    in one k3 kernel launch each; a k1 conv + folded BN shortcut when the
+    width changes. Training, and stride 2 in eval too (:204-223): conv -> BN
+    -> ReLU -> conv -> BN (+ k1/BN shortcut) -> ReLU(out + residual).
+
+    stride=2 (the MinkUNet / ResNet stage pattern, reference
+    models/resnet.py:96-133): conv1 is the k3 stride-2 conv from the fine
+    level into `level` (the coarse one) and the shortcut a k1 stride-2 conv;
+    pass the fine level as `fine` (their backward reads it)."""
 
     def __init__(self, inplanes: int, planes: int, dtype=torch.float32,
-                 bn_momentum: float = _BN_MOMENTUM):
+                 bn_momentum: float = _BN_MOMENTUM, stride: int = 1):
         super().__init__()
-        self.conv1 = SparseConv(inplanes, planes, "k3", dtype=dtype)
+        if stride not in (1, 2):
+            raise ValueError(f"BasicBlock: stride {stride}")
+        self.stride = stride
+        self.conv1 = SparseConv(inplanes, planes,
+                                "k3down2" if stride == 2 else "k3",
+                                dtype=dtype)
         self.norm1 = SparseBatchNorm(planes, dtype=dtype, momentum=bn_momentum)
         self.conv2 = SparseConv(planes, planes, "k3", dtype=dtype)
         self.norm2 = SparseBatchNorm(planes, dtype=dtype, momentum=bn_momentum)
-        if inplanes != planes:
-            self.downsample_conv = SparseConv(inplanes, planes, "k1",
-                                              dtype=dtype)
+        if inplanes != planes or stride == 2:
+            self.downsample_conv = SparseConv(
+                inplanes, planes, "k1down2" if stride == 2 else "k1",
+                dtype=dtype)
             self.downsample_norm = SparseBatchNorm(planes, dtype=dtype,
                                                    momentum=bn_momentum)
         else:
             self.downsample_conv = self.downsample_norm = None
 
-    def forward(self, x, level: LevelGraph):
-        if self.training:
-            return self._forward_train(x, level)
+    def forward(self, x, level: LevelGraph, fine: LevelGraph | None = None):
+        if self.training or self.stride == 2:
+            return self._forward_train(x, level, fine)
         residual = x
         if self.downsample_conv is not None:
             sd, bd = self.downsample_norm.fold()
@@ -165,11 +191,11 @@ class BasicBlock(nn.Module):
         return self.conv2(out, level, scale=s2, shift=b2, residual=residual,
                           relu=True)
 
-    def _forward_train(self, x, level: LevelGraph):
-        out = torch.relu(self.norm1(self.conv1(x, level), level.valid))
+    def _forward_train(self, x, level: LevelGraph, fine=None):
+        out = torch.relu(self.norm1(self.conv1(x, level, fine), level.valid))
         out = self.norm2(self.conv2(out, level), level.valid)
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_norm(self.downsample_conv(x, level),
-                                            level.valid)
+            residual = self.downsample_norm(
+                self.downsample_conv(x, level, fine), level.valid)
         return torch.relu(out + residual)

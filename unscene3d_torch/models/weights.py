@@ -20,7 +20,10 @@ transformer layers' Dense params are rounded once here rather than at every
 forward; a training model (train/loop.py, `model.float()`) keeps f32
 masters, so the JAX params and batch_stats come across unrounded.
 `load_flax_dino_variables` bridges the JAX DINO ViT (`dino_state_from_flax`:
-Dense kernels transposed, the patch conv from HWIO to OIHW).
+Dense kernels transposed, the patch conv from HWIO to OIHW), and
+`load_flax_lseg_variables` the JAX LSegFeatureNet (`lseg_state_from_flax`:
+the same layout changes, BatchNorm `mean` / `var` to `running_mean` /
+`running_var`, the transposed convs' kernels as they are).
 """
 
 from __future__ import annotations
@@ -176,6 +179,78 @@ def load_flax_dino_variables(vit: torch.nn.Module, variables) -> None:
     """Copy the JAX ViTExtractor's variables into the port's ViTExtractor;
     raises on missing or unused keys and on shape mismatches."""
     load_state_strict(vit, dino_state_from_flax(variables), "DINO bridge")
+
+
+_LSEG_VIT = {"norm1": "norm1", "norm2": "norm2", "attn/qkv": "attn.qkv",
+             "attn/proj": "attn.proj", "mlp_fc1": "mlp.fc1",
+             "mlp_fc2": "mlp.fc2"}
+
+
+def _lseg_name(mods: list[str]) -> str:
+    """The port's module path of a JAX LSegFeatureNet module path."""
+    top, rest = mods[0], "/".join(mods[1:])
+    if top == "vit":
+        if rest == "patch_embed":
+            return "pretrained.model.patch_embed.proj"
+        m = re.fullmatch(r"block_(\d+)/(.+)", rest)
+        if m and m.group(2) in _LSEG_VIT:
+            return (f"pretrained.model.blocks.{m.group(1)}."
+                    f"{_LSEG_VIT[m.group(2)]}")
+    m = re.fullmatch(r"post(\d)", top)
+    if m:
+        idx = {"readout/project": "0.project.0", "conv": "3", "deconv": "4",
+               "down": "4"}.get(rest)
+        if idx is not None:
+            return f"pretrained.act_postprocess{m.group(1)}.{idx}"
+    if re.fullmatch(r"layer\d_rn", top) or top == "head1":
+        return f"scratch.{top}"
+    m = re.fullmatch(r"refinenet(\d)", top)
+    if m:
+        unit = {"rcu1": "resConfUnit1", "rcu2": "resConfUnit2"}
+        parts = [unit.get(p, p) for p in mods[1:]]
+        return ".".join([f"scratch.{top}"] + parts)
+    raise KeyError(f"LSeg bridge: unknown module {'/'.join(mods)}")
+
+
+def lseg_state_from_flax(variables) -> dict[str, torch.Tensor]:
+    """The JAX LSegFeatureNet's `{"params", "batch_stats"}` tree -> the state
+    dict of `encoders_2d/lseg.py:LSegFeatureNet`: Dense kernels transposed,
+    conv kernels HWIO -> OIHW, the transposed convs' (Cin, Cout, k, k)
+    kernels as they are, LayerNorm / BatchNorm `scale` -> `weight`, the
+    BatchNorm statistics -> `running_mean` / `running_var` (with
+    `num_batches_tracked` 0). Raises KeyError on a module it does not
+    know."""
+    state = {}
+    for path, arr in _flatten(variables["params"]):
+        *mods, leaf = path
+        arr = np.asarray(arr, np.float32)
+        if mods == ["vit"]:                       # cls_token, pos_embed
+            state[f"pretrained.model.{leaf}"] = torch.tensor(arr)
+            continue
+        name = _lseg_name(mods)
+        if leaf == "kernel":
+            if arr.ndim == 4 and mods[-1] != "deconv":
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 2:
+                arr = arr.T
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        state[f"{name}.{leaf}"] = torch.tensor(arr)
+    for path, arr in _flatten(variables.get("batch_stats", {})):
+        *mods, leaf = path
+        name = _lseg_name(mods)
+        state[f"{name}.running_{leaf}"] = torch.tensor(
+            np.asarray(arr, np.float32))
+        state[f"{name}.num_batches_tracked"] = torch.tensor(0)
+    return state
+
+
+def load_flax_lseg_variables(net: torch.nn.Module, variables) -> None:
+    """Copy the JAX LSegFeatureNet's variables into the port's
+    LSegFeatureNet; raises on missing or unused keys and on shape
+    mismatches."""
+    load_state_strict(net, lseg_state_from_flax(variables), "LSeg bridge")
 
 
 class _Prefixed(torch.nn.Module):

@@ -20,8 +20,10 @@ Everything but kernel 7 is plain torch, as it is plain XLA in the JAX
 package. `brick_conv3` runs its plain twin for CPU tensors only; for a CUDA
 tensor it launches the kernel or raises, and `brick_conv3.launches` counts
 the launches. Bound on the H100: the bytes of the dense output slab (g
-and the residual are needed only near occupied cells). The engine is
-reached through these functions only; no model path routes to it.
+and the residual are needed only near occupied cells). The model path
+reaches kernel 7 at the collator's `brick_levels`: assemble -> kernel 7
+-> disassemble per k3 conv (ops/conv_ops.py:brick_conv3_flat); the halo
+exchange serves chains that stay in brick space.
 """
 
 from __future__ import annotations
@@ -176,28 +178,29 @@ def halo_exchange(g, bg: BrickGraph):
 
 def brick_conv3_plain(g, w, bg: BrickGraph, scale=None, offset=None,
                       residual=None, relu=False):
-    """Plain PyTorch twin of kernel 7: the 27 shifted slice products of
-    brick_engine.py:_conv_kernel in f32, the epilogue, the occupancy mask,
-    zero halo rows. The mask selects: an empty cell is an exact zero even
-    where a non-finite input reaches it (the JAX op multiplies by the mask,
-    which is the same on finite inputs)."""
+    """Plain PyTorch twin of kernel 7: at each occupied window cell the 27
+    shifted-row products of brick_engine.py:_conv_kernel summed in offset
+    order in f32, the epilogue; every other cell (empty ones, halo rows) an
+    exact zero, even where a non-finite input reaches it (the JAX op
+    multiplies by the mask, which is the same on finite inputs). Only the
+    occupied cells are computed: the kernel's output elsewhere is zero by
+    definition."""
     cout = w.shape[-1]
+    b, r = torch.nonzero(bg.occ[:, WIN_LO: WIN_LO + WIN_N], as_tuple=True)
     gf = g.float()
     wf = w.float()
-    acc = torch.zeros(g.shape[0], WIN_N, cout, dtype=torch.float32,
-                      device=g.device)
+    acc = torch.zeros(len(b), cout, dtype=torch.float32, device=g.device)
     for k, d in enumerate(K3_DELTAS):
-        acc = acc + gf[:, WIN_LO + d: WIN_LO + d + WIN_N, :] @ wf[k]
+        acc = acc + gf[b, WIN_LO + d + r] @ wf[k]
     y = acc
     if scale is not None:
         y = y * scale.float() + offset.float()
     if residual is not None:
-        y = y + residual[:, WIN_LO: WIN_LO + WIN_N, :].float()
+        y = y + residual[b, WIN_LO + r].float()
     if relu:
         y = torch.clamp_min(y, 0.0)
-    y = torch.where(bg.occ[:, WIN_LO: WIN_LO + WIN_N, None], y, 0.0)
     out = torch.zeros(g.shape[0], CELLS, cout, dtype=g.dtype, device=g.device)
-    out[:, WIN_LO: WIN_LO + WIN_N, :] = y.to(g.dtype)
+    out[b, WIN_LO + r] = y.to(g.dtype)
     return out
 
 

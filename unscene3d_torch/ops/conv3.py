@@ -157,8 +157,10 @@ def flip_transpose(w):
 
 
 def conv3_dw_plain(x, gm, nbr_idx):
-    """Plain twin of kernel 5: 27 masked row gathers, each followed by an f32
-    matmul with gm. Returns (27, Cin, Cout) f32."""
+    """Plain twin of kernel 5: one masked row gather per row of nbr_idx
+    (misses point at x's last row), each followed by an f32 matmul with gm.
+    Returns (K, Cin, Cout) f32, K = 27 for the k3 conv. Also the dW of the
+    stride-2 convs (conv_ops.py), whose tables cross levels."""
     n = x.shape[0]
     xf = x.float()
     gf = gm.float()

@@ -15,7 +15,9 @@ collate builds both tables on the host, static per batch like
 `seg_counts`. The kernel reads `order` as row indices and nothing else of
 the rows' ids, so a row may appear in several segments' runs: the
 tri-plane projection (ops/triplane.py) walks one order in which every
-voxel appears once per plane, with no change to the kernel.
+voxel appears once per plane, with no change to the kernel. For ids that
+are computed on the device (the renderers' pixels, pseudo/projection.py)
+`device_segment_order` sorts them there.
 
 `segment_sum` runs the plain twin `segment_sum_plain` for CPU tensors only.
 For a CUDA tensor it launches the kernel's two passes or raises;
@@ -56,6 +58,26 @@ def segment_order(ids: np.ndarray, num_segments: int,
     offsets = np.zeros(num_segments + 1, np.int64)
     np.cumsum(counts, out=offsets[1:])
     return rows.astype(np.int32), offsets.astype(np.int32)
+
+
+def device_segment_order(ids, num_segments: int, valid=None):
+    """`segment_order` and `segment_pieces` of ids that live on the device
+    (the renderers' pixel ids), as int32 tensors on ids' device: the valid
+    rows with ids in [0, S) stable-sorted by id (torch.sort(stable=True):
+    the same order on every run), the offsets by a binary search, and the
+    pieces from the host, which copies the offsets there once."""
+    ids = ids.long()
+    keep = (ids >= 0) & (ids < num_segments)
+    if valid is not None:
+        keep = keep & valid
+    rows = torch.nonzero(keep).flatten()
+    sorted_ids, perm = torch.sort(ids[rows], stable=True)
+    offsets = torch.searchsorted(
+        sorted_ids, torch.arange(num_segments + 1, device=ids.device))
+    offsets = offsets.to(torch.int32)
+    pieces = torch.from_numpy(segment_pieces(offsets.cpu().numpy()))
+    return (rows[perm].to(torch.int32).contiguous(), offsets.contiguous(),
+            pieces.to(ids.device))
 
 
 def segment_pieces(offsets: np.ndarray, rows: int = ROWS_PER_PIECE

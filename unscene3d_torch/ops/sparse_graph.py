@@ -5,19 +5,24 @@ The host builds the whole multi-level topology once per batch (ops/
 kernel_maps.py) and pads every level to a bucketed size; the kernels then
 read the maps directly. Levels: 0 = stride 1 ... 4 = stride 16. A level
 named in the collator's `csr_levels` also carries the valid-pair tables of
-kernel 6 (ops/csr_conv.py:CsrGraph); the brick tables of kernel 7 are built
-apart from the batch (ops/brick_engine.py:build_brick_graph). The window
-tables of the JAX package exist only for the TPU compiler and have no
-counterpart here.
+kernel 6 (ops/csr_conv.py:CsrGraph), one named in `brick_levels` the brick
+tables of kernel 7 (ops/brick_engine.py:BrickGraph), and with
+`build_down_nbr_maps` every level but the finest the k3 stride-2 maps of the
+MinkUNet / ResNet families. The window tables of the JAX package exist only
+for the TPU compiler and have no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import torch
 
 from unscene3d_torch.ops.csr_conv import CsrGraph
+
+if TYPE_CHECKING:
+    from unscene3d_torch.ops.brick_engine import BrickGraph
 
 
 @dataclasses.dataclass
@@ -40,6 +45,15 @@ class LevelGraph:
     # valid-pair tables of the level's k3 topology: with them every k3 conv
     # of the level runs through kernel 6 instead of kernel 1
     csr: CsrGraph | None = None
+    # the level's halo'd 8^3 bricks: with them every k3 conv of the level
+    # runs through kernel 7 (ops/conv_ops.py:sparse_conv3)
+    brick: "BrickGraph | None" = None
+    # k3 STRIDE-2 maps (MinkUNet / ResNet stage convs), on the coarse level:
+    # (27, N) int32 rows of the finer level at 2 * coord + offset (misses
+    # finer_num_padded - 1), and their transpose (27, finer_num_padded)
+    # int32 rows of this level (misses N - 1), the gather table of the dx
+    down_nbr_idx: torch.Tensor | None = None
+    down_nbr_t: torch.Tensor | None = None
 
     @property
     def num_padded(self) -> int:
@@ -49,11 +63,17 @@ class LevelGraph:
     def child_valid(self) -> torch.Tensor:
         return self.child_idx != (self.finer_num_padded - 1)
 
+    @property
+    def down_nbr_valid(self) -> torch.Tensor:
+        return self.down_nbr_idx != (self.finer_num_padded - 1)
+
     def to(self, device, non_blocking: bool = False) -> "LevelGraph":
+        """Every tensor and table of the level on `device` (the ints and the
+        absent tables stay as they are)."""
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
             for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), (torch.Tensor, CsrGraph))})
+            if hasattr(getattr(self, f.name), "to")})
 
 
 @dataclasses.dataclass
@@ -82,8 +102,14 @@ def graph_from_levels(levels: list[dict]) -> SparseGraph:
                    parent_offset=t(lv["parent_offset"]),
                    finer_num_padded=lv["finer_num_padded"],
                    up_idx=None if lv["up_idx"] is None else t(lv["up_idx"]),
-                   csr=lv["csr"])
+                   csr=lv["csr"], brick=lv.get("brick"),
+                   down_nbr_idx=_opt(lv.get("down_nbr_idx")),
+                   down_nbr_t=_opt(lv.get("down_nbr_t")))
         for lv in levels))
+
+
+def _opt(a):
+    return None if a is None else torch.from_numpy(a)
 
 
 def bucket_size(n: int, align: int = 128, min_size: int = 256,

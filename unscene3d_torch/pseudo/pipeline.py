@@ -11,8 +11,10 @@ lockstep, so the eigensolves batch on the device.
 
 The 2D encoding runs frame by frame on the device: the ViT's features stay
 there, each frame is projected there (`projection.project_2d_features`) and
-folded into the running per-voxel features by the reference's pairwise
-mean, so no frame's features reach the host. Weights come from the
+folded into the running per-voxel features, so no frame's features reach
+the host: by the reference's pairwise mean (`reference_average=True`, the
+default) or, with `reference_average=False`, into a running sum and hit
+count, each voxel's mean over the frames that hit it. Weights come from the
 checkpoints (`csc_weights`, `dino_weights`), for the CSC also from JAX
 variables (`csc_variables`; the tests), or are seeded random ones.
 `save_visualizations` writes each saved scene's PLY layers and HTML viewer
@@ -58,8 +60,12 @@ class PseudoMaskPipeline:
         voxel_size: float = VOXEL_SIZE,
         device="cuda",
         dtype=torch.float32,
+        reference_average: bool = True,
     ):
-        """dtype: the CSC backbone's compute dtype (the ViT runs in f32)."""
+        """dtype: the CSC backbone's compute dtype (the ViT runs in f32).
+        reference_average: how the 2D features fold over a scene's frames
+        (unscene3d_tpu/pseudo/pipeline.py:88-99): the reference's pairwise
+        mean, or the mean over each voxel's hit frames."""
         if modality not in ("geom", "color", "both"):
             raise ValueError(f"unknown modality {modality!r}")
         if method not in ("ncut", "query"):
@@ -70,6 +76,7 @@ class PseudoMaskPipeline:
         self.cfg = ncut_cfg or NCutConfig()
         self.aggregation_mode = aggregation_mode
         self.voxel_size = voxel_size
+        self.reference_average = bool(reference_average)
         self.csc = None
         if modality in ("geom", "both"):
             self.csc = CSCFeatureExtractor(
@@ -99,8 +106,8 @@ class PseudoMaskPipeline:
     def _encode_2d(self, scene: dict) -> np.ndarray:
         """(N, 384) per-voxel DINO features of one scene's frames: each
         frame through the ViT and projected on the device, folded into the
-        running features by the reference's pairwise mean on the voxels a
-        frame hits."""
+        running features on the voxels a frame hits: the reference's
+        pairwise mean, or a sum and a count divided at the end."""
         images, K = scene["images"], scene["intrinsics"]
         if images is None or len(images) == 0:
             raise ValueError(f"{scene['scene_name']}: no frames to encode")
@@ -115,7 +122,7 @@ class PseudoMaskPipeline:
             np.asarray(scene["poses"], np.float32)).to(dev)
         K = torch.from_numpy(np.asarray(K, np.float32)).to(dev)
         acc = torch.zeros(n, self.dino.feature_dim, device=dev)
-        seen = torch.zeros(n, dtype=torch.bool, device=dev)
+        hits = torch.zeros(n, dtype=torch.int32, device=dev)
         t0 = time.perf_counter()
         for i in range(len(images)):
             feats = self.dino(images[i][None])           # (1, h, w, 384)
@@ -123,11 +130,16 @@ class PseudoMaskPipeline:
             out, cnt = project_2d_features(feats, world, valid,
                                            poses[i][None], K, h, w)
             hit = cnt > 0
-            seen |= hit
-            acc = torch.where(hit[:, None], (acc + out) / 2.0, acc)
+            hits += hit.to(torch.int32)
+            if self.reference_average:
+                acc = torch.where(hit[:, None], (acc + out) / 2.0, acc)
+            else:
+                acc = acc + torch.where(hit[:, None], out, 0.0)
             t0 = self._clock("project", t0)
+        if not self.reference_average:
+            acc = acc / hits.clamp_min(1)[:, None].to(torch.float32)
         self.hit_share[scene["scene_name"]] = (
-            seen.float().mean().item())
+            (hits > 0).float().mean().item())
         return acc.cpu().numpy()
 
     def _query_masks(self, inp: dict) -> np.ndarray:

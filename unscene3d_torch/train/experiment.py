@@ -388,7 +388,8 @@ class Experiment:
                 voxel_size=collator.voxel_size,
                 num_levels=collator.num_levels,
                 fine_buckets=collator.fine_buckets,
-                csr_levels=collator.csr_levels)
+                csr_levels=collator.csr_levels,
+                brick_levels=collator.brick_levels)
         self.eval_collator = eval_collator or collator
         # the model reads host FPS seeds for its queries
         for c in (self.collator, self.eval_collator):
