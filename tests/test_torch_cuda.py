@@ -633,3 +633,48 @@ def test_stride2_autograd_functions_on_the_card(cuda, stride2_levels):
                              if t is not None]
         for a, b in zip(res["cuda"], res["cpu"]):
             _close(a, b, torch.float32, tol=1e-4)
+
+
+def test_train_step_counts_every_host_sync(cuda):
+    """Every synchronizing CUDA call of a train step, as torch's sync debug
+    mode reports them, is counted by one of the tracer's host_syncs.<site>
+    counters; each of the step's eight spans records device time once."""
+    import warnings
+
+    from unscene3d_torch.data.synthetic import make_batch
+    from unscene3d_torch.train.loop import build_trainer
+    from unscene3d_torch.utils import trace
+
+    # sample sizes under every level's scene table: each round samples
+    tiny = dict(num_classes=3, hidden_dim=32, num_queries=10, num_heads=2,
+                dim_feedforward=64, num_decoders=1, hlevels=(0, 1, 2, 3),
+                sample_sizes=(8,) * 5)
+    batch, _ = FreeMaskCollator(voxel_size=0.12, fps_queries=10)(
+        make_batch(2, num_points=1500))
+    batch = batch.to(cuda)
+    trainer = build_trainer(torch.float32, seed=0, backbone="Res16UNet14A",
+                            solver="auction", device=cuda, **tiny)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    trainer.train_step(batch, gen)
+    torch.cuda.synchronize()
+    trace.reset()
+    # the first switch of a process warns once itself: switch before catching
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with trace.recording():
+                trainer.train_step(batch, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    s = trace.summary()
+    trace.reset()
+    syncs = [f"{w.filename}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    counted = {k: v for k, v in s["counters"].items()
+               if k.startswith("host_syncs.")}
+    assert len(syncs) == sum(counted.values()), (syncs, counted)
+    assert counted["host_syncs.sample_level_fill"] == 4
+    assert len(s["spans"]) == 8
+    assert all(v["n"] == 1 and len(v["device_ms"]) == 1
+               for v in s["spans"].values())

@@ -29,6 +29,7 @@ from unscene3d_torch.losses.matcher import HungarianMatcher
 from unscene3d_torch.ops.segment_pool import gather_rows
 from unscene3d_torch.ops.triplane import (normalized_target_projection,
                                           triplane_losses)
+from unscene3d_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -52,8 +53,9 @@ class SetCriterion:
         pred_logits = outputs["pred_logits"]          # (L, B, Q, C)
         pred_masks = outputs["pred_masks_seg"]        # (L, B, S, Q)
         L = pred_logits.shape[0]
-        matched_q = self.matcher(pred_logits, pred_masks, targets,
-                                 batch.seg_valid)
+        with trace.span("criterion.matcher"):
+            matched_q = self.matcher(pred_logits, pred_masks, targets,
+                                     batch.seg_valid)
         losses = {"loss_ce": self._loss_labels(pred_logits, targets,
                                                matched_q)}
         losses.update(self._loss_masks(pred_masks, targets, matched_q,
@@ -82,6 +84,8 @@ class SetCriterion:
         dev = pred_logits.device
         no_object = C - 1
         empty_weight = torch.ones(C, dtype=torch.float32, device=dev)
+        # a Python scalar set into a card tensor is copied there and waits
+        trace.count("host_syncs.criterion_eos_weight")
         empty_weight[-1] = self.eos_coef
         # scatter matched target labels onto queries; padding targets land
         # in a trash slot so they never clobber a real query's class

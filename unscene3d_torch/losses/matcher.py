@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from unscene3d_torch.data.batch import Targets
+from unscene3d_torch.utils import trace
 
 _BIG = 1e8
 # the auction's loop body is a fixed point once every target is assigned,
@@ -126,6 +127,8 @@ def solve_lsap_auction(cost: torch.Tensor,
     benefit = -c.transpose(1, 2)                                  # (nb, T, Q)
     rng = torch.clamp_min(c.amax(dim=(1, 2)) - c.amin(dim=(1, 2)), 1e-6)
     eps = (_EPS_SCALE * rng + 1e-9)[:, None]
+    # a scalar copied to the card waits for it
+    trace.count("host_syncs.matcher_neg_inf")
     neg_inf = torch.tensor(float("-inf"), device=dev)
     t_ids = torch.arange(t, device=dev)
     q_ids = torch.arange(q, device=dev).expand(nb, q)
@@ -133,9 +136,13 @@ def solve_lsap_auction(cost: torch.Tensor,
     owner_q = torch.full((nb, q), -1, dtype=torch.long, device=dev)
     assign_t = torch.where(v, -1, q).long()
 
+    reads, rounds = 0, cap
     for it in range(cap):
-        if it % _CHECK_EVERY == 0 and bool((assign_t >= 0).all()):
-            break
+        if it % _CHECK_EVERY == 0:
+            reads += 1
+            if bool((assign_t >= 0).all()):
+                rounds = it
+                break
         unassigned = assign_t < 0
         value = benefit - price[:, None, :]                       # (nb, T, Q)
         best_q = value.argmax(dim=2)           # first maximum, as jnp.argmax
@@ -161,6 +168,9 @@ def solve_lsap_auction(cost: torch.Tensor,
         assign_t = wide[:, :t]
         owner_q = torch.where(has_bid, win_t, owner_q)
         price = torch.where(has_bid, price + win_bid, price)
+    trace.count("auction_rounds", rounds)
+    trace.count("auction_capped", int(rounds == cap))
+    trace.count("host_syncs.matcher_converged", reads)
 
     # greedy completion: every still-unassigned target takes its cheapest
     # free query, in target order
@@ -182,6 +192,7 @@ def solve_lsap(cost: torch.Tensor) -> torch.Tensor:
     matrix). cost (..., Q, T) -> (..., T) int64 query index per target."""
     from scipy.optimize import linear_sum_assignment
 
+    trace.count("host_syncs.matcher_scipy")
     c = cost.detach().cpu().double().numpy()
     lead = c.shape[:-2]
     q, t = c.shape[-2:]

@@ -40,6 +40,7 @@ from unscene3d_torch.models.transformer_layers import (CrossAttentionLayer,
 from unscene3d_torch.ops import conv_ops
 from unscene3d_torch.ops.segment_ops import segment_max
 from unscene3d_torch.ops.segment_pool import segment_sum
+from unscene3d_torch.utils import trace
 
 
 def _sample_level(batch: SceneBatch, hlevel: int, sample_size: int,
@@ -59,6 +60,8 @@ def _sample_level(batch: SceneBatch, hlevel: int, sample_size: int,
         dev = generator.device if generator is not None else scene_idx.device
         scores = torch.rand(scene_valid.shape, generator=generator,
                             device=dev)
+    # the scalar's copy to the card waits for it
+    trace.count("host_syncs.sample_level_fill")
     scores = torch.where(scene_valid, scores.to(scene_valid.device),
                          torch.tensor(float("-inf"),
                                       device=scene_valid.device))
@@ -263,13 +266,20 @@ class Mask3D(nn.Module):
 
     def _forward(self, batch: SceneBatch, generator, return_aux_vox,
                  query_draw) -> dict:
+        with trace.span("mask3d.backbone"):
+            pcd_features, fpn, _final = self.backbone(batch.features,
+                                                      batch.graph)
+        with trace.span("mask3d.decoder"):
+            return self._decoder(batch, pcd_features, fpn, generator,
+                                 return_aux_vox, query_draw)
+
+    def _decoder(self, batch: SceneBatch, pcd_features, fpn, generator,
+                 return_aux_vox, query_draw) -> dict:
         B = batch.batch_size
         S = batch.num_segments_padded
         D = self.hidden_dim
         levels = batch.graph.levels
         valid0 = levels[0].valid
-
-        pcd_features, fpn, _final = self.backbone(batch.features, batch.graph)
 
         with torch.no_grad():
             # coordinate pyramid by repeated average pooling of the raw

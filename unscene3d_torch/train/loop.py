@@ -34,12 +34,15 @@ logits of every prediction set (`return_aux_vox`, loop.py:128). The port's
 criterion gathers the matched columns from the segment logits instead (the
 voxel logits are an exact take of them), so the trainer does not ask for
 that (L, N0, Q) stack: 4.8 GB in f32 at the batch-8 train batch.
+
+While the tracer is on (utils/trace.py) a step records the span `step` and
+under it `step.criterion`, `step.backward`, `step.bn_stats` and
+`step.adamw`; the model adds `mask3d.backbone` and `mask3d.decoder`.
 """
 
 from __future__ import annotations
 
 import math
-import time
 
 import torch
 import torch.distributed as dist
@@ -50,6 +53,7 @@ from unscene3d_torch.losses.matcher import HungarianMatcher
 from unscene3d_torch.models.sparse_modules import SparseBatchNorm
 from unscene3d_torch.models.weights import init_random_
 from unscene3d_torch.runtime import resolve_device
+from unscene3d_torch.utils import trace
 
 
 def onecycle_schedule(peak_value: float, transition_steps: int,
@@ -178,12 +182,14 @@ class Trainer:
         gradients in `params` order). A parameter the loss does not reach
         gets a zero gradient: AdamW still decays it, as optax does."""
         outputs = self.model(batch, generator=generator)
-        losses = self.criterion(outputs, batch)
+        with trace.span("step.criterion"):
+            losses = self.criterion(outputs, batch)
         params = self.params
-        grads = torch.autograd.grad(losses["total"], params,
-                                    allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        with trace.span("step.backward"):
+            grads = torch.autograd.grad(losses["total"], params,
+                                        allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
         return {k: v.detach() for k, v in losses.items()}, grads
 
     def train_step(self, batch, generator=None) -> dict:
@@ -192,14 +198,20 @@ class Trainer:
         gradients, the float losses and the BN running statistics are the
         means over the ranks before the AdamW step (`matched_q` stays the
         rank's own)."""
-        losses, grads = self.loss_and_grads(batch, generator)
-        for bn in self._bns:
-            bn.update_running_stats()
-        if self.group is not None:
-            grads, losses = self._all_reduce_mean(grads, losses)
-        self.optimizer.step(self.params, grads)
-        self.step += 1
+        with trace.span("step", step=self.step):
+            losses, grads = self.loss_and_grads(batch, generator)
+            self._update_running_stats()
+            if self.group is not None:
+                grads, losses = self._all_reduce_mean(grads, losses)
+            with trace.span("step.adamw"):
+                self.optimizer.step(self.params, grads)
+            self.step += 1
         return losses
+
+    def _update_running_stats(self):
+        with trace.span("step.bn_stats"):
+            for bn in self._bns:
+                bn.update_running_stats()
 
     def _all_reduce_mean(self, grads, losses):
         """The ranks' mean of the gradients, the float losses and every
@@ -212,7 +224,7 @@ class Trainer:
         if any(p.dtype != torch.float32 for p in parts):
             raise TypeError("the all-reduce averages f32 tensors only")
         flat = torch.cat([p.reshape(-1) for p in parts])
-        timer = _Timer(flat.device)
+        timer = trace.Timer(flat.device.type == "cuda")
         dist.all_reduce(flat, group=self.group)
         timer.stop()
         flat.div_(dist.get_world_size(self.group))
@@ -246,17 +258,18 @@ class Trainer:
         if self.group is not None:
             raise ValueError("gradient accumulation is not composed with "
                              "data parallelism (a process group)")
-        total, per_micro = None, []
-        for batch in batches:
-            losses, grads = self.loss_and_grads(batch, generator)
-            for bn in self._bns:
-                bn.update_running_stats()
-            total = grads if total is None else torch._foreach_add(total,
-                                                                   grads)
-            per_micro.append(losses)
-        torch._foreach_div_(total, len(per_micro))
-        self.optimizer.step(self.params, total)
-        self.step += 1
+        with trace.span("step", step=self.step):
+            total, per_micro = None, []
+            for batch in batches:
+                losses, grads = self.loss_and_grads(batch, generator)
+                self._update_running_stats()
+                total = grads if total is None else torch._foreach_add(
+                    total, grads)
+                per_micro.append(losses)
+            torch._foreach_div_(total, len(per_micro))
+            with trace.span("step.adamw"):
+                self.optimizer.step(self.params, total)
+            self.step += 1
         return {k: torch.stack([m[k] for m in per_micro]).mean(0)
                 for k, v in per_micro[0].items() if v.is_floating_point()}
 
@@ -273,32 +286,6 @@ class Trainer:
         self.model.load_state_dict(state["model"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
-
-
-class _Timer:
-    """Milliseconds between construction and `stop()`: CUDA events on a
-    GPU (read when `ms()` is called), the host clock on the CPU."""
-
-    def __init__(self, device):
-        self.cuda = device.type == "cuda"
-        if self.cuda:
-            self.events = [torch.cuda.Event(enable_timing=True)
-                           for _ in range(2)]
-            self.events[0].record()
-        else:
-            self.t0 = time.perf_counter()
-
-    def stop(self) -> None:
-        if self.cuda:
-            self.events[1].record()
-        else:
-            self.t1 = time.perf_counter()
-
-    def ms(self) -> float:
-        if self.cuda:
-            self.events[1].synchronize()
-            return self.events[0].elapsed_time(self.events[1])
-        return 1e3 * (self.t1 - self.t0)
 
 
 def build_trainer(dtype=torch.float32, seed: int | None = 0,
