@@ -48,9 +48,13 @@ gloo (4 of the train batch's scenes each) bitwise the mean-of-shards
 oracle computed on the card, with each rank's launches of kernels 1-5, its
 step and wait times and the all-reduce's time and bytes; and, only where
 the machine has two cards or more, the same over NCCL on two cards and the
-entry point on two cards, at f32 tolerance.
+entry point on two cards, at f32 tolerance. Kernel 1 and 4's dx walk each
+level in its row order (ops/conv3.py:row_order): each of their cases also
+runs in the rows' own order (bitwise equal, both timed), beside every
+level's products over its valid pairs and its order's build time.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase kernels      # kernels 1-5, the f32 step
     python3 chip_smoke.py --phase train_dp     # that phase alone
     python3 chip_smoke.py --phase supervised   # or eval_clis: that phase alone
 
@@ -325,9 +329,21 @@ def counters():
 
 def reset_counters():
     cnt = counters()
-    for fn in cnt.values():
+    for fn in (*cnt.values(), *_order_builders()):
         fn.launches = 0
     return cnt
+
+
+def _order_builders():
+    from unscene3d_torch.ops.conv3 import row_order_keys, row_order_tally
+
+    return row_order_keys, row_order_tally
+
+
+def order_launches():
+    """The row order's key and tally kernel launches since the last reset:
+    one each an order built on the card (ops/conv3.py:row_order)."""
+    return {fn.__name__: fn.launches for fn in _order_builders()}
 
 
 def nbytes(*tensors) -> int:
@@ -462,6 +478,90 @@ def _compare(name, dtype, kernel, twin, tol=None, work=None, library=None,
     return out
 
 
+def _dense_ratio(order):
+    """The products a launch in `order` computes over the valid pairs'."""
+    return 32 * order.live_groups.item() / max(order.pairs.item(), 1)
+
+
+def _own_order(nbr_idx):
+    """The rows of nbr_idx in their own order (the identity), with the key
+    and the tally kernels' tally."""
+    from unscene3d_torch.ops.conv3 import (RowOrder, row_order_keys,
+                                           row_order_tally)
+
+    keys = row_order_keys(nbr_idx)
+    order = torch.arange(nbr_idx.shape[1], dtype=torch.int32,
+                         device=nbr_idx.device)
+    return RowOrder(order, keys, *row_order_tally(keys).unbind())
+
+
+def _order_beside(name, dtype, launch, nbr_idx, order):
+    """launch(order) (kernel 1 or 4's dx over nbr_idx in its row order)
+    against launch(identity) (the rows in the level's own order): bitwise
+    equal; both spin-timed, in turns (order, identity, identity, order),
+    with each order's products over the valid pairs'."""
+    ident = _own_order(nbr_idx)
+    got, base = launch(order), launch(ident)
+    torch.cuda.synchronize()
+    if not torch.equal(got, base):
+        raise AssertionError(f"{name} {dtype}: not bitwise in the row order")
+    t = [cuda_ms(lambda: launch(o), spin=True)
+         for o in (order, ident, ident, order)]
+    out = dict(ordered_ms=(t[0] + t[3]) / 2, identity_ms=(t[1] + t[2]) / 2,
+               ordered_ratio=_dense_ratio(order),
+               identity_ratio=_dense_ratio(ident))
+    log(f"  {name:44s} {str(dtype)[6:]:8s} row order ms="
+        f"{out['ordered_ms']:.3f} (products / pairs "
+        f"{out['ordered_ratio']:.3f}) own order ms={out['identity_ms']:.3f} "
+        f"({out['identity_ratio']:.3f}), bitwise equal")
+    return out
+
+
+def phase_order_ratios(batch, what):
+    """Each level's row order built on the card (ops/conv3.py:row_order)
+    against the plain twins on the host over the same map: the order, the
+    sorted masks and the tally equal (torch.equal), and the own order's
+    tally too; each level's products over the valid pairs' in its own row
+    order and in its row order, the order's build time (keys, sort, tally;
+    spin-timed), and the key and tally kernels' launches."""
+    from unscene3d_torch.ops.conv3 import (row_order, row_order_keys,
+                                           row_order_keys_plain,
+                                           row_order_tally,
+                                           row_order_tally_plain)
+
+    total = 0.0
+    for lv, level in enumerate(batch.graph.levels):
+        nbr = level.nbr_idx.to("cuda")
+        row_order_keys.launches = row_order_tally.launches = 0
+        own, by_mask = _own_order(nbr), row_order(nbr)
+        launches = order_launches()
+        if set(launches.values()) != {2}:
+            raise AssertionError(f"{what} L{lv}: two row orders launched "
+                                 f"{launches}")
+        keys = row_order_keys_plain(nbr.cpu())
+        srt, order = torch.sort(keys, stable=True)
+        for got, want, part in (
+                (by_mask.order, order.int(), "order"),
+                (by_mask.keys, srt, "sorted masks"),
+                (torch.stack([by_mask.live_groups, by_mask.pairs]),
+                 row_order_tally_plain(srt), "tally"),
+                (own.keys, keys, "masks"),
+                (torch.stack([own.live_groups, own.pairs]),
+                 row_order_tally_plain(keys), "own order's tally")):
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{what} L{lv}: the card's row order "
+                                     f"{part} differs from the twins'")
+        ms = cuda_ms(lambda: row_order(nbr), spin=True)
+        total += ms
+        log(f"  {what} L{lv}: {level.num_padded} rows, "
+            f"{by_mask.pairs.item()} valid pairs, products / pairs "
+            f"{_dense_ratio(own):.3f} in the level's order, "
+            f"{_dense_ratio(by_mask):.3f} in its row order; built in "
+            f"{ms:.3f} ms; equal to the twins, launches {launches} for "
+            f"two orders")
+    log(f"  {what}: the five row orders {total:.3f} ms")
+
+
 def _compare_pool(name, fine, coarse, c, dtype, g, dev):
     """Kernel 2's 8-child sum (avg_pool2) from `fine` to `coarse` on a
     random (fine rows, c) input, bitwise its twin. The library call: one
@@ -522,7 +622,8 @@ def phase_kernels(dev, batch, csr_batch):
     against kernel 6 on the same inputs over the pair tables of csr_batch
     (the same scene collated with csr_levels), bitwise on valid rows in
     both dtypes."""
-    from unscene3d_torch.ops.conv3 import conv3_fwd, conv3_fwd_plain
+    from unscene3d_torch.ops.conv3 import (conv3_fwd, conv3_fwd_plain,
+                                           level_order)
     from unscene3d_torch.ops.csr_conv import csr_conv3_fwd
     from unscene3d_torch.ops.k_apply import k_apply, k_apply_plain
 
@@ -550,17 +651,24 @@ def phase_kernels(dev, batch, csr_batch):
             if lv in csr:
                 k6 = ("csr_conv3", lambda: csr_conv3_fwd(x, w, csr[lv],
                                                          lvl.valid, **kw))
+            order = level_order(lvl)
+            name = f"conv3_fwd L{lv} {cin}->{cout}"
             res["conv3_fwd"][(lv, cin, cout, dtype)] = _compare(
-                f"conv3_fwd L{lv} {cin}->{cout}"
-                + (" +scale/shift+res+relu" if epi else " +scale/shift+relu"),
+                name + (" +scale/shift+res+relu" if epi
+                        else " +scale/shift+relu"),
                 dtype,
-                lambda: conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw),
+                lambda: conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw,
+                                  order=order),
                 lambda: conv3_fwd_plain(x, w, lvl.nbr_idx, lvl.valid, **kw),
                 work=(nbytes(x, w, lvl.nbr_idx, lvl.valid, kw["scale"],
                              kw["shift"], kw.get("residual"))
                       + n * cout * x.element_size(),
                       2 * hits(lvl.nbr_idx) * cin * cout, dtype),
                 other=k6, equal_rows=lvl.valid)
+            res["conv3_fwd"][(lv, cin, cout, dtype)].update(_order_beside(
+                name, dtype, lambda o: conv3_fwd(x, w, lvl.nbr_idx, lvl.valid,
+                                                 **kw, order=o),
+                lvl.nbr_idx, order))
         # k2 down conv L0 -> L1 (conv1p1s2, 32 -> 32)
         x = torch.randn(L[0].num_padded, 32, generator=g).to(dev, dtype)
         w = (torch.randn(8, 32, 32, generator=g) / 32 ** 0.5).to(dev, dtype)
@@ -896,7 +1004,7 @@ def phase_train_kernels(dev, batch, csr_batch):
     L0->L1 and kernel 3 at the train batch's level 0."""
     from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_bwd_plain,
                                            conv3_dw, conv3_dw_plain,
-                                           flip_transpose)
+                                           flip_transpose, level_order)
     from unscene3d_torch.ops.csr_conv import csr_conv3_fwd
 
     L = [lv.to(dev) for lv in batch.graph.levels]
@@ -920,6 +1028,7 @@ def phase_train_kernels(dev, batch, csr_batch):
             gm = (torch.randn(n, cout, generator=g).to(dev)
                   * lvl.valid[:, None]).to(dtype)
             args = (x, gm, w, lvl.nbr_idx, lvl.valid)
+            order = level_order(lvl)
             pairs = hits(lvl.nbr_idx)
             k6 = None
             if lv in csr:
@@ -927,11 +1036,14 @@ def phase_train_kernels(dev, batch, csr_batch):
                     gm, flip_transpose(w), csr[lv], lvl.valid))
             res["conv3_bwd"][(lv, cin, cout, dtype)] = _compare(
                 f"conv3_bwd (dx + dW) L{lv} {cin}->{cout}, dx", dtype,
-                lambda: conv3_bwd(*args)[0],
+                lambda: conv3_bwd(*args, order=order)[0],
                 lambda: conv3_bwd_plain(*args)[0],
                 work=(nbytes(x, x, gm, w, w, lvl.nbr_idx, lvl.valid),
                       4 * pairs * cin * cout, dtype),
                 other=k6, equal_rows=lvl.valid)
+            res["conv3_bwd"][(lv, cin, cout, dtype)].update(_order_beside(
+                f"conv3_bwd L{lv} {cin}->{cout}, dx + dW", dtype,
+                lambda o: conv3_bwd(*args, order=o)[0], lvl.nbr_idx, order))
             res["conv3_dw"][(lv, cin, cout, dtype)] = _compare(
                 f"conv3_dw L{lv} {cin}->{cout} (f32 out)", dtype,
                 lambda: conv3_dw(x, gm, lvl.nbr_idx),
@@ -939,7 +1051,7 @@ def phase_train_kernels(dev, batch, csr_batch):
                 tol=DW_TOL[dtype],
                 work=(nbytes(x, gm, lvl.nbr_idx) + 27 * cin * cout * 4,
                       2 * pairs * cin * cout, dtype))
-            del x, w, gm, args, k6
+            del x, w, gm, args, k6, order
     return res
 
 
@@ -977,7 +1089,8 @@ def phase_train(dev, batch):
     launches = {k: fn.launches for k, fn in cnt.items()}
     peak = torch.cuda.max_memory_allocated()
     n_steps = 1 + TRAIN_STEPS
-    log(f"train path: {n_steps} steps, launches {launches}")
+    log(f"train path: {n_steps} steps, launches {launches}, row order "
+        f"launches {order_launches()}")
     for k, per in PER_TRAIN_STEP.items():
         if launches[k] != per * n_steps:
             raise AssertionError(f"{k}: {launches[k]} launches, expected "
@@ -1104,7 +1217,8 @@ def _timed_steps(trainer, batch, gen, n_steps, per_step, what):
         log(f"  {what} step {step}: {times[-1]:.1f}ms total="
             f"{losses['total'].item():.4f}")
     launches = {k: fn.launches for k, fn in cnt.items()}
-    log(f"{what} train path: {n_steps} steps, launches {launches}")
+    log(f"{what} train path: {n_steps} steps, launches {launches}, row "
+        f"order launches {order_launches()}")
     for k, per in per_step.items():
         if launches[k] != per * n_steps:
             raise AssertionError(f"{k}: {launches[k]} launches, expected "
@@ -1174,7 +1288,7 @@ def phase_csr_kernels(dev, batch, tbatch):
     csr_levels dW, is held against csr_dw (the reference's dW over the
     pairs, plain torch) and both are timed."""
     from unscene3d_torch.ops.conv3 import (conv3_dw, conv3_fwd,
-                                           flip_transpose)
+                                           flip_transpose, level_order)
     from unscene3d_torch.ops.csr_conv import (csr_conv3_fwd,
                                               csr_conv3_fwd_plain, csr_dw)
 
@@ -1215,8 +1329,9 @@ def phase_csr_kernels(dev, batch, tbatch):
                 lambda: csr_conv3_fwd_plain(x, w, lvl.csr, lvl.valid, **kw),
                 work=work(x, w, lvl, cout, kw["scale"], kw["shift"],
                           kw.get("residual")),
-                other=("conv3_fwd", lambda: conv3_fwd(x, w, lvl.nbr_idx,
-                                                      lvl.valid, **kw)),
+                other=("conv3_fwd", lambda: conv3_fwd(
+                    x, w, lvl.nbr_idx, lvl.valid, **kw,
+                    order=level_order(lvl))),
                 equal_rows=lvl.valid)
         # the backward at the train batch's level 0, 128 -> 96
         lvl = tbatch.graph.levels[0].to(dev)
@@ -1232,8 +1347,8 @@ def phase_csr_kernels(dev, batch, tbatch):
             lambda: csr_conv3_fwd(gm, wf, lvl.csr, lvl.valid),
             lambda: csr_conv3_fwd_plain(gm, wf, lvl.csr, lvl.valid),
             work=work(gm, wf, lvl, cin),
-            other=("conv3_fwd", lambda: conv3_fwd(gm, wf, lvl.nbr_idx,
-                                                  lvl.valid)),
+            other=("conv3_fwd", lambda: conv3_fwd(
+                gm, wf, lvl.nbr_idx, lvl.valid, order=level_order(lvl))),
             equal_rows=lvl.valid)
         dw, dw5 = csr_dw(x, gm, lvl.csr), conv3_dw(x, gm, lvl.nbr_idx)
         err = (dw - dw5).abs().max().item() / dw5.abs().max().item()
@@ -1267,7 +1382,7 @@ def phase_brick(dev, batch):
     dense conv3d over the halo'd 10^3 bricks (the products only: no
     epilogue, no occupancy mask)."""
     from unscene3d_torch.ops import brick_engine as be
-    from unscene3d_torch.ops.conv3 import conv3_fwd
+    from unscene3d_torch.ops.conv3 import conv3_fwd, level_order
 
     lvl = batch.graph.levels[0]
     t0 = time.perf_counter()
@@ -1322,12 +1437,14 @@ def phase_brick(dev, batch):
                 f"the same dense work through conv3d "
                 f"{dense_tflops(bg.nb_pad, c, c, res[(c, dtype)]['library_ms'])}")
             flat = be.disassemble(be.brick_conv3(gb, w, bg), bg, lvl)
-            ref = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid)
+            ref = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid,
+                            order=level_order(lvl))
             err = (flat.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             eng_ms = cuda_ms(lambda: be.disassemble(
                 be.brick_conv3(be.assemble(x, bg), w, bg), bg, lvl), reps=5)
-            k1_ms = cuda_ms(lambda: conv3_fwd(x, w, lvl.nbr_idx, lvl.valid),
+            k1_ms = cuda_ms(lambda: conv3_fwd(x, w, lvl.nbr_idx, lvl.valid,
+                                              order=level_order(lvl)),
                             reps=5)
             log(f"  disassemble(brick_conv3(assemble(x))) {c}->{c} "
                 f"{str(dtype)[6:]:8s} vs conv3_fwd: max_rel_err="
@@ -1358,8 +1475,9 @@ def phase_brick(dev, batch):
             v for k, v in launches.items() if k != "brick_conv3"):
         raise AssertionError(f"brick path launches {launches}")
     for dtype, x, w1, w2, y2, ms in chains:
-        ref = conv3_fwd(conv3_fwd(x, w1, lvl.nbr_idx, lvl.valid), w2,
-                        lvl.nbr_idx, lvl.valid)
+        order = level_order(lvl)
+        ref = conv3_fwd(conv3_fwd(x, w1, lvl.nbr_idx, lvl.valid, order=order),
+                        w2, lvl.nbr_idx, lvl.valid, order=order)
         if not torch.isfinite(y2).all() or y2.shape != ref.shape:
             raise AssertionError(f"brick chain {dtype}: bad output")
         err = (y2.float() - ref.float()).abs().max().item()
@@ -1550,7 +1668,7 @@ def phase_proto(dev):
     kernel 8's library call."""
     from unscene3d_torch.bench import proto_brick, proto_win_decompose
     from unscene3d_torch.ops import brick_engine as be
-    from unscene3d_torch.ops.conv3 import conv3_fwd
+    from unscene3d_torch.ops.conv3 import conv3_fwd, row_order
     from unscene3d_torch.ops.proto_brick import (proto_brick_conv,
                                                  proto_brick_conv_plain)
     from unscene3d_torch.ops.win_decompose import (VARIANTS, spill_products,
@@ -1606,10 +1724,12 @@ def phase_proto(dev):
     spilled[torch.from_numpy(wg.spill_out[wg.spill_rows >= 0]).to(
         dev).long()] = True
     k1_rows = wcase.valid & ~spilled
+    k1_order = row_order(wcase.nbr_idx)
     for v in VARIANTS:
         vs_k1 = {} if v != "full" else dict(
             other=("conv3_fwd",
-                   lambda: conv3_fwd(x, w, wcase.nbr_idx, wcase.valid)),
+                   lambda: conv3_fwd(x, w, wcase.nbr_idx, wcase.valid,
+                                     order=k1_order)),
             equal_rows=k1_rows, other_rows=k1_rows)
         res["win_decompose"][v] = _compare(
             f"win_decompose {v} L0 {cin}->{cout}", bf16,
@@ -1617,7 +1737,7 @@ def phase_proto(dev):
             lambda: win_conv_variant_plain(x, w, tb, v),
             work=(*work[v], bf16), **vs_k1)
     full = win_conv_variant(x, w, tb, "full").float()
-    k1 = conv3_fwd(x, w, wcase.nbr_idx, wcase.valid).float()
+    k1 = conv3_fwd(x, w, wcase.nbr_idx, wcase.valid, order=k1_order).float()
     total = full + spill_products(x, w, wg)
     scale = k1.abs().max().item()
     err = (total - k1)[wcase.valid].abs().max().item()
@@ -4111,6 +4231,24 @@ def main(argv) -> int:
          "resunet": phase_resunet, "lseg": phase_lseg,
          "renderers": phase_renderers}[argv[1]](dev, card)
         return 0
+    if argv == ["--phase", "kernels"]:
+        # kernels 1-5 at the table's shapes, each level's products over its
+        # pairs, and the f32 train step (launches, bitwise repeat)
+        from unscene3d_torch.data.collate import FreeMaskCollator
+        from unscene3d_torch.data.synthetic import make_scene
+
+        bench = [FreeMaskCollator(voxel_size=VOXEL, fine_buckets=True,
+                                  fps_queries=100, csr_levels=c)(
+            [make_scene(**BENCH_SCENE, seed=0)])[0] for c in ((), CSR_LEVELS)]
+        phase_kernels(dev, *bench)
+        phase_order_ratios(bench[0], "bench scene")
+        del bench
+        tbatch = train_batch()
+        phase_order_ratios(tbatch, "train batch")
+        phase_train_kernels(dev, tbatch, train_batch(CSR_LEVELS))
+        torch.cuda.empty_cache()
+        phase_train_f32(dev, tbatch.to(dev))
+        return 0
     if argv == ["--phase", "brick_route"]:
         phase_brick_route(dev, card)
         phase_brick_train(dev, card, train_batch())
@@ -4133,6 +4271,7 @@ def main(argv) -> int:
         log(f"bench scene collate (csr_levels={csr_levels}): "
             f"{time.perf_counter() - t0:.2f}s")
     res = phase_kernels(dev, batches[()], batches[CSR_LEVELS])
+    phase_order_ratios(batches[()], "bench scene")
     launches = {}
     launches["eval"], preds, served = phase_slice(dev)
     phase_profile(preds, served)
@@ -4152,6 +4291,7 @@ def main(argv) -> int:
 
     tbatch = train_batch()
     tbatch_csr = train_batch(CSR_LEVELS)
+    phase_order_ratios(tbatch, "train batch")
     for name, cases in phase_train_kernels(dev, tbatch, tbatch_csr).items():
         res.setdefault(name, {}).update(cases)
     res["csr_conv3"], dw_vs_csr = phase_csr_kernels(dev, batches[CSR_LEVELS],

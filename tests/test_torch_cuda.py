@@ -15,6 +15,8 @@ round to nearest). Each kernel also runs twice and must give bitwise-equal
 output. Kernels 6 (compacted valid pairs) and 7 (dense bricks) compute the
 same function as kernel 1 and are also held against it on the same inputs;
 so is kernel 9's `full` (window tables), on the rows without a spilled pair.
+Kernel 1 and 4's dx walk a level's rows in its row order (ops/conv3.py:
+row_order): the same launches in the rows' own order are bitwise equal.
 """
 
 import dataclasses
@@ -23,13 +25,17 @@ import numpy as np
 import pytest
 import torch
 
+from tests._row_order import own_order
 from unscene3d_torch.data.collate import FreeMaskCollator
 from unscene3d_torch.data.synthetic import make_scene
 from unscene3d_torch.ops import brick_engine as be
 from unscene3d_torch.ops import conv_ops, csr_conv
 from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_bwd_plain, conv3_dw,
                                        conv3_dw_plain, conv3_fwd,
-                                       conv3_fwd_plain)
+                                       conv3_fwd_plain, level_order,
+                                       row_order, row_order_keys,
+                                       row_order_keys_plain, row_order_tally,
+                                       row_order_tally_plain)
 from unscene3d_torch.ops.csr_conv import (build_csr_graph, csr_conv3_fwd,
                                           csr_conv3_fwd_plain)
 from unscene3d_torch.ops.k_apply import k_apply, k_apply_plain
@@ -93,8 +99,9 @@ def test_conv3_matches_twin(cuda, levels, dtype, lv, cin, cout):
               shift=torch.randn(cout, generator=g).to(cuda),
               residual=torch.randn(n, cout, generator=g).to(cuda, dtype),
               relu=True)
-    got = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw)
-    again = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw)
+    order = level_order(lvl)
+    got = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw, order=order)
+    again = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw, order=order)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _close(got, conv3_fwd_plain(x, w, lvl.nbr_idx, lvl.valid, **kw), dtype)
@@ -201,8 +208,9 @@ def test_conv3_bwd_matches_twin(cuda, levels, dtype, lv, cin, cout):
     w = (torch.randn(27, cin, cout, generator=g) * 0.1).to(cuda, dtype)
     gm = (torch.randn(n, cout, generator=g).to(cuda)
           * lvl.valid[:, None]).to(dtype)
-    dx, dw = conv3_bwd(x, gm, w, lvl.nbr_idx, lvl.valid)
-    dx2, dw2 = conv3_bwd(x, gm, w, lvl.nbr_idx, lvl.valid)
+    order = level_order(lvl)
+    dx, dw = conv3_bwd(x, gm, w, lvl.nbr_idx, lvl.valid, order=order)
+    dx2, dw2 = conv3_bwd(x, gm, w, lvl.nbr_idx, lvl.valid, order=order)
     dw32 = conv3_dw(x, gm, lvl.nbr_idx)
     torch.cuda.synchronize()
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
@@ -238,7 +246,8 @@ def test_csr_conv3_matches_twin_and_kernel_1(cuda, levels, dtype, lv, cin,
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     _close(got, csr_conv3_fwd_plain(x, w, csr, lvl.valid, **kw), dtype)
-    ref1 = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw)
+    ref1 = conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw,
+                     order=level_order(lvl))
     _close(got, ref1, dtype)
     assert torch.equal(got[lvl.valid], ref1[lvl.valid])
 
@@ -305,7 +314,8 @@ def test_brick_conv3_matches_twin_and_kernel_1(cuda, levels, dtype, cin,
     _close(got, be.brick_conv3_plain(gb, w, bg, kw["scale"], kw["offset"],
                                      kw["residual"], True), dtype)
     flat = be.disassemble(be.brick_conv3(gb, w, bg), bg, lvl)
-    _close(flat, conv3_fwd(x, w, lvl.nbr_idx, lvl.valid), dtype)
+    _close(flat, conv3_fwd(x, w, lvl.nbr_idx, lvl.valid,
+                           order=level_order(lvl)), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -403,7 +413,8 @@ def test_win_decompose_matches_twin_and_kernel_1(cuda, levels, cin, cout,
     spilled[torch.from_numpy(wg.spill_out[wg.spill_rows >= 0]).long()] = True
     rows = valid & ~spilled.to(cuda)
     full = win_conv_variant(x, w, tables, "full")
-    k1 = conv3_fwd(x, w, torch.from_numpy(nbr).to(cuda), valid)
+    nbr = torch.from_numpy(nbr).to(cuda)
+    k1 = conv3_fwd(x, w, nbr, valid, order=row_order(nbr))
     assert rows.sum() > len(coords) // 2
     assert torch.equal(full[rows], k1[rows])
 
@@ -635,10 +646,98 @@ def test_stride2_autograd_functions_on_the_card(cuda, stride2_levels):
             _close(a, b, torch.float32, tol=1e-4)
 
 
+@pytest.fixture(scope="module")
+def train_levels():
+    """Two scenes of the train batch's kind (125k points over 8 m)."""
+    scenes = [make_scene(num_points=125_000, num_objects=12, extent=8.0,
+                         seed=100 + i) for i in range(2)]
+    batch, _ = FreeMaskCollator(voxel_size=0.02, fps_queries=8)(scenes)
+    return batch.graph.levels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lv,cin,cout", [(0, 128, 96), (1, 32, 32),
+                                         (3, 384, 256)])
+def test_row_order_launches_equal_the_own_order(cuda, train_levels, dtype,
+                                                lv, cin, cout):
+    """Kernel 1 (at L0 with the epilogue and a residual) and 4's dx in the
+    level's row order against the same launches in the rows' own order:
+    torch.equal; the row order computes fewer products."""
+    lvl = train_levels[lv].to(cuda)
+    n = lvl.num_padded
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(n, cin, generator=g).to(cuda, dtype)
+    w = (torch.randn(27, cin, cout, generator=g) / cin ** 0.5).to(cuda,
+                                                                  dtype)
+    gm = (torch.randn(n, cout, generator=g).to(cuda)
+          * lvl.valid[:, None]).to(dtype)
+    kw = {}
+    if lv == 0:
+        kw = dict(scale=torch.rand(cout, generator=g).add(0.5).to(cuda),
+                  shift=torch.randn(cout, generator=g).to(cuda),
+                  residual=torch.randn(n, cout, generator=g).to(cuda, dtype),
+                  relu=True)
+    own, by_mask = own_order(lvl.nbr_idx), level_order(lvl)
+    # the key and tally kernels against their twins on the same map
+    keys = row_order_keys_plain(lvl.nbr_idx.cpu())
+    srt, order = torch.sort(keys, stable=True)
+    twin = (order.int(), srt, *row_order_tally_plain(srt).unbind())
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(
+        (by_mask.order, by_mask.keys, by_mask.live_groups, by_mask.pairs),
+        twin))
+    assert torch.equal(own.keys.cpu(), keys)
+    assert torch.equal(torch.stack([own.live_groups, own.pairs]).cpu(),
+                       row_order_tally_plain(keys))
+    assert by_mask.live_groups.item() < own.live_groups.item()
+    assert by_mask.pairs.item() == own.pairs.item()
+    fwd = [conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw, order=o)
+           for o in (own, by_mask)]
+    dx = [conv3_bwd(x, gm, w, lvl.nbr_idx, lvl.valid, order=o)[0]
+          for o in (own, by_mask)]
+    torch.cuda.synchronize()
+    assert torch.equal(fwd[0], fwd[1]) and torch.equal(dx[0], dx[1])
+
+
+def test_the_card_wrappers_require_an_order(cuda, levels):
+    lvl = levels[2].to(cuda)
+    x = torch.randn(lvl.num_padded, 8, device=cuda)
+    w = torch.randn(27, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="row order"):
+        conv3_fwd(x, w, lvl.nbr_idx, lvl.valid)
+    with pytest.raises(ValueError, match="row order"):
+        conv3_bwd(x, x, w, lvl.nbr_idx, lvl.valid)
+
+
+def test_train_step_builds_five_orders_and_keeps_its_launches(cuda, levels):
+    """The f32 Res16UNet34C step: one row order per level (the key and the
+    tally kernels launched five times each), built once and shared by
+    kernel 1, remat's recompute and 4's dx; kernels 1, 4 and 5 launched 93,
+    46 and 47 times, as before the order."""
+    from unscene3d_torch.train.loop import build_trainer
+
+    scene = make_scene(num_points=12_000, num_objects=4, extent=3.0, seed=3)
+    host, _ = FreeMaskCollator(voxel_size=0.02, fps_queries=100)(
+        [scene, scene])
+    trainer = build_trainer(torch.float32, seed=0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    trainer.train_step(host.to(cuda), gen)
+    batch = host.to(cuda)
+    counted = (row_order_keys, row_order_tally, conv3_fwd, conv3_bwd,
+               conv3_dw)
+    before = [f.launches for f in counted]
+    trainer.train_step(batch, gen)
+    torch.cuda.synchronize()
+    after = [f.launches for f in counted]
+    assert [b - a for a, b in zip(before, after)] == [5, 5, 93, 46, 47]
+    assert all(lv.order is not None for lv in batch.graph.levels)
+
+
 def test_train_step_counts_every_host_sync(cuda):
     """Every synchronizing CUDA call of a train step, as torch's sync debug
     mode reports them, is counted by one of the tracer's host_syncs.<site>
-    counters; each of the step's eight spans records device time once."""
+    counters (the row orders and their tallies add none); each of the
+    step's eight spans records device time once; the step counts its
+    products over the valid pairs' (`conv3.*_macs`), read after it."""
     import warnings
 
     from unscene3d_torch.data.synthetic import make_batch
@@ -649,13 +748,14 @@ def test_train_step_counts_every_host_sync(cuda):
     tiny = dict(num_classes=3, hidden_dim=32, num_queries=10, num_heads=2,
                 dim_feedforward=64, num_decoders=1, hlevels=(0, 1, 2, 3),
                 sample_sizes=(8,) * 5)
-    batch, _ = FreeMaskCollator(voxel_size=0.12, fps_queries=10)(
+    host, _ = FreeMaskCollator(voxel_size=0.12, fps_queries=10)(
         make_batch(2, num_points=1500))
-    batch = batch.to(cuda)
     trainer = build_trainer(torch.float32, seed=0, backbone="Res16UNet14A",
                             solver="auction", device=cuda, **tiny)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    trainer.train_step(batch, gen)
+    trainer.train_step(host.to(cuda), gen)
+    # a fresh copy: the watched step builds its levels' row orders itself
+    batch = host.to(cuda)
     torch.cuda.synchronize()
     trace.reset()
     # the first switch of a process warns once itself: switch before catching
@@ -675,6 +775,8 @@ def test_train_step_counts_every_host_sync(cuda):
                if k.startswith("host_syncs.")}
     assert len(syncs) == sum(counted.values()), (syncs, counted)
     assert counted["host_syncs.sample_level_fill"] == 4
+    pairs = s["counters"]["conv3.pair_macs"]
+    assert 0 < pairs <= s["counters"]["conv3.dense_macs"] < 3 * pairs
     assert len(s["spans"]) == 8
     assert all(v["n"] == 1 and len(v["device_ms"]) == 1
                for v in s["spans"].values())

@@ -9,7 +9,7 @@ import torch
 
 from tests.cuda_emu.emulation import _close, _p, emu, levels  # noqa: F401
 from unscene3d_torch.ops.conv3 import (conv3_bwd_plain, conv3_dw_plain,
-                                       dw_splits)
+                                       dw_splits, row_order)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -49,8 +49,10 @@ def test_emulated_conv3_bwd(emu, levels, dtype, lv, cin, cout):
     dx_ref, _ = conv3_bwd_plain(x, gm, w, lvl.nbr_idx, lvl.valid)
     wf = torch.flip(w, dims=(0,)).transpose(1, 2).contiguous()
     dx = torch.empty(n, cin, dtype=dtype)
-    assert emu.conv3_bwd_dx(_p(gm), _p(wf), _p(lvl.nbr_idx), _p(lvl.valid),
-                            _p(dx), n, cin, cout, bf, None) == 0
+    order = row_order(lvl.nbr_idx)
+    assert emu.conv3_bwd_dx(_p(gm), _p(wf), _p(lvl.nbr_idx), _p(order.order),
+                            _p(order.keys), _p(lvl.valid), _p(dx), n, cin,
+                            cout, bf, None) == 0
     _close(dx, dx_ref, dtype)
     dw_ref = conv3_dw_plain(x, gm, lvl.nbr_idx)
     assert dw_splits(n, cin, cout)[0] == 1      # below _DW_MIN_ROWS

@@ -9,7 +9,7 @@ import torch
 
 from tests.cuda_emu.emulation import (_close, _p, _ragged_map,  # noqa: F401
                                       _tables, emu, levels)
-from unscene3d_torch.ops.conv3 import conv3_fwd_plain
+from unscene3d_torch.ops.conv3 import conv3_fwd_plain, row_order
 from unscene3d_torch.ops.csr_conv import build_csr_graph, csr_conv3_fwd_plain
 
 
@@ -110,9 +110,10 @@ def test_emulated_csr_conv3_equals_kernel_1(emu, levels, dtype, lv, cin,
         _p(x), _p(w), _p(csr.pair_in), _p(csr.pair_out), _p(csr.tile_start),
         _p(valid), _p(sc), _p(sh), _p(res), _p(out6), n, cin, cout,
         int(relu), bf, None) == 0
-    assert emu.conv3_fwd(_p(x), _p(w), _p(nbr), _p(valid), _p(sc), _p(sh),
-                         _p(res), _p(out1), n, cin, cout, int(relu), bf,
-                         None) == 0
+    order = row_order(nbr)
+    assert emu.conv3_fwd(_p(x), _p(w), _p(nbr), _p(order.order),
+                         _p(order.keys), _p(valid), _p(sc), _p(sh), _p(res),
+                         _p(out1), n, cin, cout, int(relu), bf, None) == 0
     assert torch.equal(out6[valid], out1[valid])
     assert not out6[~valid].any()
     _close(out6, csr_conv3_fwd_plain(x, w, csr, valid, sc, sh, res, relu),

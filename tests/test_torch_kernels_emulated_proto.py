@@ -13,6 +13,7 @@ import torch
 from tests.cuda_emu.emulation import (_close, _p, bricks,  # noqa: F401
                                       emu, levels, thin_bricks)
 from unscene3d_torch.ops import brick_engine as be
+from unscene3d_torch.ops.conv3 import row_order
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -142,7 +143,9 @@ def test_emulated_win_decompose_equals_kernel_1(emu, win_graph, win_level,
     w = (torch.randn(27, cin, cout, generator=g) * 0.1).bfloat16()
     out9 = _win_decompose(emu, x, w, tables, "full")
     out1 = torch.full((n_pad, cout), float("nan"), dtype=torch.bfloat16)
-    assert emu.conv3_fwd(_p(x), _p(w), _p(nbr), _p(valid), None, None, None,
+    order = row_order(nbr)
+    assert emu.conv3_fwd(_p(x), _p(w), _p(nbr), _p(order.order),
+                         _p(order.keys), _p(valid), None, None, None,
                          _p(out1), n_pad, cin, cout, 0, 1, None) == 0
     spilled = torch.zeros(n_pad, dtype=torch.bool)
     spilled[torch.from_numpy(wg.spill_out[wg.spill_rows >= 0]).long()] = True

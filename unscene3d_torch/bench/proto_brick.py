@@ -29,7 +29,7 @@ from unscene3d_torch.bench.timing import clock_name, device_ms
 from unscene3d_torch.data.collate import FreeMaskCollator
 from unscene3d_torch.data.synthetic import make_scene
 from unscene3d_torch.ops.brick_engine import CELLS
-from unscene3d_torch.ops.conv3 import conv3_fwd
+from unscene3d_torch.ops.conv3 import conv3_fwd, row_order
 from unscene3d_torch.ops.hashing import CoordHashTable
 from unscene3d_torch.ops.kernel_maps import KERNEL3_OFFSETS
 from unscene3d_torch.ops.proto_brick import proto_brick_conv
@@ -201,9 +201,10 @@ def run(device="cuda", channels: int = 96, scene: dict | None = None,
     rows = case.asm.reshape(-1).long()
     ms = {"assembly_gather": device_ms(lambda: case.xpad[rows], device, reps)}
     log(f"assembly gather (nb*1008 rows): {ms['assembly_gather']:.3f}ms")
+    k1_order = row_order(case.nbr_idx)
     ms["conv3_fwd"] = device_ms(
-        lambda: conv3_fwd(case.xfull, w, case.nbr_idx, case.valid), device,
-        reps)
+        lambda: conv3_fwd(case.xfull, w, case.nbr_idx, case.valid,
+                          order=k1_order), device, reps)
     log(f"gather conv (kernel 1) {c}->{c}: {ms['conv3_fwd']:.3f}ms")
     ms["brick_conv_proto"] = device_ms(lambda: proto_brick_conv(g, w),
                                        device, reps)
@@ -212,8 +213,8 @@ def run(device="cuda", channels: int = 96, scene: dict | None = None,
 
     # kernel 8's rows at the real voxels against kernel 1's
     got = proto_brick_conv(g, w)[case.own_brick, case.interior].float()
-    ref = conv3_fwd(case.xfull, w, case.nbr_idx,
-                    case.valid)[case.valid][case.order].float()
+    ref = conv3_fwd(case.xfull, w, case.nbr_idx, case.valid,
+                    order=k1_order)[case.valid][case.order].float()
     err = (got - ref).abs().max().item()
     rel = err / (ref.abs().max().item() + 1e-6)
     log(f"brick-vs-gather max abs err {err:.4f} rel {rel:.5f} "

@@ -31,7 +31,7 @@ import torch
 from unscene3d_torch.bench.timing import clock_name, device_ms
 from unscene3d_torch.data.collate import FreeMaskCollator
 from unscene3d_torch.data.synthetic import make_scene
-from unscene3d_torch.ops.conv3 import conv3_fwd
+from unscene3d_torch.ops.conv3 import conv3_fwd, row_order
 from unscene3d_torch.ops.kernel_maps import build_neighbor_map_padded
 from unscene3d_torch.ops.sparse_graph import bucket_size
 from unscene3d_torch.ops.win_decompose import (VARIANTS, WinTables,
@@ -95,9 +95,10 @@ def run(device="cuda", variants=VARIANTS, cin: int = 128, group: int = 8,
         ms[variant] = device_ms(
             lambda: win_conv_variant(case.x, case.w, case.tables, variant),
             device, reps, spin=True)
+    order = row_order(case.nbr_idx)
     ms["conv3_fwd"] = device_ms(
-        lambda: conv3_fwd(case.x, case.w, case.nbr_idx, case.valid), device,
-        reps, spin=True)
+        lambda: conv3_fwd(case.x, case.w, case.nbr_idx, case.valid,
+                          order=order), device, reps, spin=True)
     for name, t in ms.items():
         log(f"{name:>10}: {t:.3f}ms")
     return dict(rows=case.x.shape[0], spilled_pairs=wg.num_spills, ms=ms,

@@ -30,7 +30,7 @@ import torch
 from unscene3d_torch.bench.timing import clock_name, device_ms
 from unscene3d_torch.data.collate import FreeMaskCollator
 from unscene3d_torch.data.synthetic import make_scene
-from unscene3d_torch.ops.conv3 import conv3_fwd, flip_transpose
+from unscene3d_torch.ops.conv3 import conv3_fwd, flip_transpose, level_order
 from unscene3d_torch.ops.csr_conv import csr_conv3_fwd
 from unscene3d_torch.ops.k_apply import k_apply
 from unscene3d_torch.runtime import resolve_device
@@ -97,8 +97,10 @@ def run(device="cuda", bench=BENCH_SCENE, train=TRAIN_SCENE,
             kw = affine(cout, lvl.num_padded if res else None)
             name = (f"{tag} conv3_fwd L{lv} {cin}->{cout}"
                     + (" +res" if res else ""))
+            order = level_order(lvl)
             out[name] = ms(name, lambda: conv3_fwd(x, w, lvl.nbr_idx,
-                                                   lvl.valid, **kw))
+                                                   lvl.valid, **kw,
+                                                   order=order))
         xu, wu = rnd(L[1].num_padded, 96), rnd(8, 96, 96, scale=96 ** -.5)
         name = f"{tag} k_apply up2 L1->L0 96->96"
         out[name] = ms(name, lambda: k_apply(xu, L[0].up_idx, wu, L[0].valid))
@@ -106,8 +108,10 @@ def run(device="cuda", bench=BENCH_SCENE, train=TRAIN_SCENE,
         def beside_kernel_1(case, x, w, lvl, kw):
             """Kernel 6 and kernel 1 on the same inputs, in turns 6, 1, 1,
             6."""
+            order = level_order(lvl)
             k6 = lambda: csr_conv3_fwd(x, w, lvl.csr, lvl.valid, **kw)  # noqa
-            k1 = lambda: conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw)  # noqa
+            k1 = lambda: conv3_fwd(x, w, lvl.nbr_idx, lvl.valid, **kw,  # noqa
+                                   order=order)
             n6 = f"{tag} csr_conv3 {case}"
             n1 = f"{tag} conv3_fwd beside it, {case}"
             t6, t1, t1b, t6b = ms(n6, k6), ms(n1, k1), ms(n1, k1), ms(n6, k6)

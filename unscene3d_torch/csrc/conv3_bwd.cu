@@ -400,18 +400,20 @@ int launch_dw_tc(const void* x, const void* gm, const void* nbr, float* part,
 }  // namespace
 
 extern "C" int conv3_bwd_dx(const void* gm, const void* wflip,
-                            const void* nbr, const void* valid, void* dx,
+                            const void* nbr, const void* order,
+                            const void* keys, const void* valid, void* dx,
                             int n, int cin, int cout, int is_bf16,
                             void* stream) {
-  // gm (N, Cout) gathered through wflip (27, Cout, Cin) into dx (N, Cin)
+  // gm (N, Cout) gathered through wflip (27, Cout, Cin) into dx (N, Cin),
+  // over the rows in kernel 1's order (conv3.cu)
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return us3d::launch_gather_gemm<__nv_bfloat16>(
-        gm, wflip, nbr, valid, nullptr, nullptr, nullptr, dx, 27, n, n - 1,
-        cout, cin, 0, st);
-  return us3d::launch_gather_gemm<float>(gm, wflip, nbr, valid, nullptr,
-                                         nullptr, nullptr, dx, 27, n, n - 1,
-                                         cout, cin, 0, st);
+        gm, wflip, nbr, order, keys, valid, nullptr, nullptr, nullptr, dx,
+        27, n, n - 1, cout, cin, 0, st);
+  return us3d::launch_gather_gemm<float>(gm, wflip, nbr, order, keys, valid,
+                                         nullptr, nullptr, nullptr, dx, 27,
+                                         n, n - 1, cout, cin, 0, st);
 }
 
 // part: (splits, 27, Cin, Cout) f32 scratch, unused (may be NULL) when

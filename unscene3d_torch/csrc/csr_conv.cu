@@ -113,7 +113,7 @@ __device__ __forceinline__ void csr_conv_ring_block(
   __syncthreads();
   ring_main_loop<Tile>(smem, x, w, sidx, live_k, live_g, n_live_s, valid,
                        scale, shift, residual, out, n, kNone, cin, cout, relu,
-                       row0, col0);
+                       row0, col0, nullptr);
 }
 
 // The kernel entry of each dtype, with kernel 1's launch bounds

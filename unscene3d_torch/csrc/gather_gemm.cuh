@@ -25,7 +25,14 @@
 // block once. The block stages the tile's K x 128 neighbour indices once,
 // with the list of live offsets (those some row of the tile has) and, per
 // live offset, which of the four 32-row groups have it; the pipeline walks
-// only the live (offset, Cin chunk) steps. A step's rows arrive by 16-byte
+// only the live (offset, Cin chunk) steps. Kernel 1 and 4's dx walk the
+// level's rows in a row order (ops/conv3.py:row_order, the stable sort of
+// each row's 27-bit neighbour mask), so that a 32-row group holds rows
+// with the same offsets: a group computes a step for all 32 rows when any
+// one has the neighbour, and at the train batch's level 0 that was 4.7x
+// the pairs' products in the levels' own row order (PERF.md §6). The
+// block reads its rows from the order, their masks beside them, and
+// writes each output row where the order says. A step's rows arrive by 16-byte
 // cp.async (__pipeline_memcpy_async), a missing row as an explicit zero
 // store, with the weight slice beside them, into a ring of 3 stages (2 for
 // the f32 tile at NC 128) with one barrier per step, so the next steps'
@@ -42,9 +49,9 @@
 //    8-row register tile and reads A and B as 64- and 128-bit shared
 //    loads. 32-channel chunks. Shared memory per block: kStages stages of
 //    128 x 36 + 32 x NC floats, or the 128 x (NC + 4) f32 epilogue tile if
-//    larger, plus the row table and live lists (kernel 1 14.1 KB, kernel 6
-//    14.3): NC 128 with 2 stages 68.0 KB, NC 96 with 3 stages 90.0, NC 64
-//    78.0, NC 32 66.0; so two blocks fit in an SM's 228 KB, and the f32
+//    larger, plus the row table and live lists (kernel 1 14.6 KB with its
+//    rows, kernel 6 14.3): NC 128 with 2 stages 68.0 KB, NC 96
+//    with 3 stages 90.0, NC 64 78.0, NC 32 66.0; so two blocks fit in an SM's 228 KB, and the f32
 //    entries' __launch_bounds__ hold the 128 registers that two blocks
 //    leave a thread. On a level of few 128-row tiles the f32 column tile
 //    narrows (fma_ring_width), so that the grid fills the SMs.
@@ -417,7 +424,8 @@ struct RingNoHook {
 // stages, spills the accumulators into the f32 tile Cs (leading dimension
 // Tile::kLdC, over the ring), calls hook(Cs) (which, if it writes Cs, ends
 // on a barrier), then writes the block's 128 rows x NC columns from (row0,
-// col0) through the epilogue.
+// col0) through the epilogue: tile row r is output row rows[r] (shared
+// memory) where the launch walks a row order, else row0 + r (rows null).
 template <typename Tile, typename Hook = RingNoHook>
 __device__ __forceinline__ void ring_main_loop(
     unsigned char* smem, const typename Tile::T* __restrict__ x,
@@ -427,7 +435,8 @@ __device__ __forceinline__ void ring_main_loop(
     const float* __restrict__ shift,
     const typename Tile::T* __restrict__ residual,
     typename Tile::T* __restrict__ out, int n_out, int sentinel, int cin,
-    int cout, int relu, int row0, int col0, const Hook& hook = Hook()) {
+    int cout, int relu, int row0, int col0, const int* rows,
+    const Hook& hook = Hook()) {
   using T = typename Tile::T;
   constexpr int NC = Tile::kNC;
   constexpr int kK = Tile::kK;
@@ -492,9 +501,9 @@ __device__ __forceinline__ void ring_main_loop(
   for (int e = tid; e < kRingM * NC; e += kThreads) {
     const int r = e / NC;
     const int n = e % NC;
-    const int i = row0 + r;
     const int co = col0 + n;
-    if (i >= n_out || co >= cout) continue;
+    if (row0 + r >= n_out || co >= cout) continue;
+    const int i = rows != nullptr ? rows[r] : row0 + r;
     epilogue_store(Cs[r * Tile::kLdC + n], valid[i] ? 1.f : 0.f,
                    (size_t)i * cout + co, co, scale, shift, residual, out,
                    relu);
@@ -503,11 +512,19 @@ __device__ __forceinline__ void ring_main_loop(
 
 // A block of kernel 1: its prologue (the tile's (K, 128) slice of idx,
 // then which 32-row groups of each offset hold a neighbour) and the ring
-// main loop.
+// main loop. The block's rows are order[row0 + r] with a row order (kernel
+// 1 and 4's dx: K = 27, the sentinel the level's last row), else row0 + r
+// (order and keys null: the weighted kernel 2); their neighbour masks,
+// keys[row0 + r] (bit k: idx[k, row] is not the sentinel) or every bit
+// without keys, say which entries of idx to read. The order only regroups
+// whole rows: each output is the same chain of products either way. Each
+// thread reads its rows' order and mask entries itself (cached): a staging
+// pass behind a barrier cost kernel 2 up to 5% (PERF.md §6).
 template <typename Tile>
 __device__ __forceinline__ void gather_gemm_ring_block(
     const typename Tile::T* __restrict__ x,
     const typename Tile::T* __restrict__ w, const int* __restrict__ idx,
+    const int* __restrict__ order, const int* __restrict__ keys,
     const uint8_t* __restrict__ valid, const float* __restrict__ scale,
     const float* __restrict__ shift,
     const typename Tile::T* __restrict__ residual,
@@ -519,14 +536,20 @@ __device__ __forceinline__ void gather_gemm_ring_block(
   __shared__ int live_k[kRingMaxK];    // the live offsets, in order
   __shared__ int live_g[kRingMaxK];    // their 32-row groups, a bit each
   __shared__ int n_live_s;
+  __shared__ int srow[kRingM];         // with an order: the output rows
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * kRingM;
   const int col0 = blockIdx.y * Tile::kNC;
 
   for (int e = tid; e < K * kRingM; e += kThreads) {
-    const int i = row0 + e % kRingM;
-    sidx[e] = i < n_out ? idx[(size_t)(e / kRingM) * n_out + i] : sentinel;
+    const int r = e % kRingM;
+    const int k = e / kRingM;
+    const int i = row0 + r;
+    const int row = order != nullptr && i < n_out ? order[i] : i;
+    const int key = i >= n_out ? 0 : keys != nullptr ? keys[i] : ~0;
+    sidx[e] = key >> k & 1 ? idx[(size_t)k * n_out + row] : sentinel;
+    if (k == 0) srow[r] = row;
   }
   __syncthreads();
   if (tid < K * kRingGroups) {   // (offset, group) = (tid / 4, tid % 4)
@@ -540,7 +563,8 @@ __device__ __forceinline__ void gather_gemm_ring_block(
   __syncthreads();
   ring_main_loop<Tile>(smem, x, w, sidx, live_k, live_g, n_live_s, valid,
                        scale, shift, residual, out, n_out, sentinel, cin,
-                       cout, relu, row0, col0);
+                       cout, relu, row0, col0,
+                       order != nullptr ? srow : nullptr);
 }
 
 // The kernel entry of each dtype. bf16: ptxas's own register choice (128
@@ -551,6 +575,7 @@ __device__ __forceinline__ void gather_gemm_ring_block(
 #define US3D_GATHER_GEMM_ARGS                                               \
   const typename Tile::T *__restrict__ x,                                   \
       const typename Tile::T *__restrict__ w, const int *__restrict__ idx,  \
+      const int *__restrict__ order, const int *__restrict__ keys,          \
       const uint8_t *__restrict__ valid, const float *__restrict__ scale,   \
       const float *__restrict__ shift,                                      \
       const typename Tile::T *__restrict__ residual,                        \
@@ -559,14 +584,16 @@ __device__ __forceinline__ void gather_gemm_ring_block(
 template <typename Tile>
 __global__ void __launch_bounds__(kThreads)
 gather_gemm_ring_kernel(US3D_GATHER_GEMM_ARGS) {
-  gather_gemm_ring_block<Tile>(x, w, idx, valid, scale, shift, residual, out,
-                               K, n_out, sentinel, cin, cout, relu);
+  gather_gemm_ring_block<Tile>(x, w, idx, order, keys, valid, scale, shift,
+                               residual, out, K, n_out, sentinel, cin, cout,
+                               relu);
 }
 template <typename Tile>
 __global__ void __launch_bounds__(kThreads, 2)
 gather_gemm_fma_ring_kernel(US3D_GATHER_GEMM_ARGS) {
-  gather_gemm_ring_block<Tile>(x, w, idx, valid, scale, shift, residual, out,
-                               K, n_out, sentinel, cin, cout, relu);
+  gather_gemm_ring_block<Tile>(x, w, idx, order, keys, valid, scale, shift,
+                               residual, out, K, n_out, sentinel, cin, cout,
+                               relu);
 }
 #undef US3D_GATHER_GEMM_ARGS
 
@@ -600,7 +627,8 @@ inline int fma_ring_width(int n_out, int cout) {
 
 template <typename Tile>
 int launch_ring(const void* x, const void* w, const int* idx,
-                const uint8_t* valid, const float* scale, const float* shift,
+                const int* order, const int* keys, const uint8_t* valid,
+                const float* scale, const float* shift,
                 const void* residual, void* out, int K, int n_out,
                 int sentinel, int cin, int cout, int relu,
                 cudaStream_t stream) {
@@ -618,22 +646,26 @@ int launch_ring(const void* x, const void* w, const int* idx,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((n_out + kRingM - 1) / kRingM, (cout + NC - 1) / NC);
   kernel<<<grid, kThreads, kBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), idx, valid, scale,
-      shift, static_cast<const T*>(residual), static_cast<T*>(out), K, n_out,
-      sentinel, cin, cout, relu);
+      static_cast<const T*>(x), static_cast<const T*>(w), idx, order, keys,
+      valid, scale, shift, static_cast<const T*>(residual),
+      static_cast<T*>(out), K, n_out, sentinel, cin, cout, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
+// order / keys: a row order of the (27, n_out) map idx and its rows'
+// neighbour masks (ops/conv3.py:row_order), or both null.
 template <typename T>
 int launch_gather_gemm(const void* x, const void* w, const void* idx,
+                       const void* order, const void* keys,
                        const void* valid, const void* scale,
                        const void* shift, const void* residual, void* out,
                        int K, int n_out, int sentinel, int cin, int cout,
                        int relu, cudaStream_t stream) {
-  if (K > kRingMaxK) return 1;   // cudaErrorInvalidValue
-  auto launch = [&](auto tile) {
+  if (K > kRingMaxK || (order != nullptr && K != kRingMaxK)) return 1;
+  auto launch = [&](auto tile) {   // 1: cudaErrorInvalidValue
     return launch_ring<decltype(tile)>(
-        x, w, static_cast<const int*>(idx),
+        x, w, static_cast<const int*>(idx), static_cast<const int*>(order),
+        static_cast<const int*>(keys),
         static_cast<const uint8_t*>(valid), static_cast<const float*>(scale),
         static_cast<const float*>(shift), residual, out, K, n_out, sentinel,
         cin, cout, relu, stream);

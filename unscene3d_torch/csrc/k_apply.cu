@@ -114,11 +114,12 @@ extern "C" int k_apply_gemm(const void* x, const void* w, const void* table,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return us3d::launch_gather_gemm<__nv_bfloat16>(
-        x, w, table, valid, nullptr, nullptr, nullptr, out, K, n_out,
-        n_in - 1, cin, cout, 0, st);
-  return us3d::launch_gather_gemm<float>(x, w, table, valid, nullptr,
-                                         nullptr, nullptr, out, K, n_out,
-                                         n_in - 1, cin, cout, 0, st);
+        x, w, table, nullptr, nullptr, valid, nullptr, nullptr, nullptr, out,
+        K, n_out, n_in - 1, cin, cout, 0, st);
+  return us3d::launch_gather_gemm<float>(x, w, table, nullptr, nullptr,
+                                         valid, nullptr, nullptr, nullptr,
+                                         out, K, n_out, n_in - 1, cin, cout,
+                                         0, st);
 }
 
 extern "C" int k_apply_sum(const void* x, const void* table,

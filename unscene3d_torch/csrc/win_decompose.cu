@@ -193,12 +193,12 @@ win_decompose_ring_kernel(const T* __restrict__ x, const T* __restrict__ w,
   if constexpr (V == kNoGemm)
     ring_main_loop<Tile>(smem, x, w, sidx, live_k, live_g, n_live_s, ones,
                          scale, shift, residual, out, n_pad, none, cin, cout,
-                         relu, row0, col0,
+                         relu, row0, col0, nullptr,
                          RowSums<Tile>{x, sidx, cin, cout, col0});
   else
     ring_main_loop<Tile>(smem, x, w, sidx, live_k, live_g, n_live_s, ones,
                          scale, shift, residual, out, n_pad, none, cin, cout,
-                         relu, row0, col0);
+                         relu, row0, col0, nullptr);
 }
 
 template <int V, typename Tile>

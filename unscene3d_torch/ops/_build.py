@@ -35,9 +35,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of the entry points (all return int = cudaError_t)
 _SIGNATURES = {
-    # x, w, nbr, valid, scale, shift, residual, out, n, cin, cout, relu,
-    # is_bf16, stream
-    "conv3_fwd": [_P] * 8 + [_I] * 5 + [_P],
+    # x, w, nbr, order, keys, valid, scale, shift, residual, out, n, cin,
+    # cout, relu, is_bf16, stream
+    "conv3_fwd": [_P] * 10 + [_I] * 5 + [_P],
+    # nbr, keys, n, stream
+    "row_order_keys": [_P] * 2 + [_I] + [_P],
+    # keys, tally, n, groups, stream
+    "row_order_tally": [_P] * 2 + [_I] * 2 + [_P],
     # x, w, table, valid, out, K, n_out, n_in, cin, cout, is_bf16, stream
     "k_apply_gemm": [_P] * 5 + [_I] * 6 + [_P],
     # x, table, valid, out, K, n_out, n_in, c, is_bf16, stream
@@ -45,8 +49,8 @@ _SIGNATURES = {
     # x, order, pieces, partial, out, num_segments, num_pieces, c, is_bf16,
     # stream
     "segment_sum": [_P] * 5 + [_I] * 4 + [_P],
-    # gm, wflip, nbr, valid, dx, n, cin, cout, is_bf16, stream
-    "conv3_bwd_dx": [_P] * 5 + [_I] * 4 + [_P],
+    # gm, wflip, nbr, order, keys, valid, dx, n, cin, cout, is_bf16, stream
+    "conv3_bwd_dx": [_P] * 7 + [_I] * 4 + [_P],
     # x, gm, nbr, partials, dw, n, cin, cout, splits, rows_per_split,
     # is_bf16, stream
     "conv3_dw": [_P] * 5 + [_I] * 6 + [_P],

@@ -19,6 +19,25 @@ see the header for the design.
 CUDA tensor it launches the kernel or raises; `conv3_fwd.launches` counts the
 launches.
 
+The row order. A 32-row group of the ring body computes an offset's products
+for all 32 rows as soon as one of them has that neighbour, so in the level's
+own row order (spatial) it computed 1.3-4.7x the valid pairs' products at
+the train batch's levels. Kernel 1 and 4's dx therefore walk a level's rows
+in the stable ascending order of their 27-bit neighbour masks (`row_order`:
+`RowOrder.order`, padding rows, mask 0, first), which groups rows that share
+their offsets. Each output row is still written once, by the same chain of
+products in the same order, so the result is bitwise that of the level's
+own order; only the steps of dead (offset, group) pairs go. `level_order`
+builds a level's order once, on the level's first k3 conv on kernel 1's
+route on the card, and keeps it on the `LevelGraph`. On the card both
+wrappers require an order; on the CPU they accept one and ignore it (the
+twins compute the same function in any order), and ops/conv_ops.py builds
+none there. Each launch adds the products
+it computes, 32 x live (offset, 32-row group) pairs x Cin x Cout, to the
+tracer's counter `conv3.dense_macs` and the valid pairs' to
+`conv3.pair_macs` (utils/trace.py), read after the window with no host read
+in the step.
+
 Kernels 4 and 5: the backward (csrc/conv3_bwd.cu), replacing
 window_conv.py:window_conv3_bwd_fused (Pallas `_bwd_fused_kernel`) and
 window_conv3_dw (Pallas `_dw_kernel`). With gm the output gradient masked to
@@ -37,9 +56,12 @@ autograd Function that uses them is ops/conv_ops.py:_Conv3.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from unscene3d_torch.ops import _build
+from unscene3d_torch.utils import trace
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 
@@ -66,6 +88,116 @@ def epilogue(acc, valid, scale=None, shift=None, residual=None, relu=False):
     if relu:
         y = torch.clamp_min(y, 0.0)
     return y * valid[:, None].to(torch.float32)
+
+
+@dataclasses.dataclass
+class RowOrder:
+    """The order in which kernel 1 and 4's dx walk a level's rows, and its
+    tally (see the top)."""
+
+    order: torch.Tensor         # (N,) int32 rows, by ascending mask
+    keys: torch.Tensor          # (N,) int32 their neighbour masks, in order
+    live_groups: torch.Tensor   # () int64 live (offset, 32-row group) pairs
+    pairs: torch.Tensor         # () int64 valid pairs
+
+    def to(self, device, non_blocking: bool = False) -> "RowOrder":
+        return RowOrder(*(getattr(self, f.name).to(
+            device, non_blocking=non_blocking)
+            for f in dataclasses.fields(self)))
+
+
+def row_order_keys_plain(nbr_idx):
+    """(N,) int32: bit k of row i set where nbr_idx[k, i] is not N - 1."""
+    n = nbr_idx.shape[1]
+    keys = torch.zeros(n, dtype=torch.int32, device=nbr_idx.device)
+    for k in range(nbr_idx.shape[0]):
+        keys |= (nbr_idx[k] != n - 1).to(torch.int32) << k
+    return keys
+
+
+def row_order_tally_plain(keys):
+    """(2,) int64 of keys in walking order: the (offset, 32-row group) pairs
+    in which some row of the group has the offset, and the set bits."""
+    pad = keys.new_zeros(-keys.shape[0] % 32)
+    groups = torch.cat([keys, pad]).view(-1, 32)
+    live = pairs = 0
+    for k in range(27):
+        bit = (groups >> k) & 1
+        live = live + bit.amax(1).sum()
+        pairs = pairs + bit.sum()
+    return torch.stack([live, pairs]).to(torch.int64)
+
+
+def row_order_keys(nbr_idx):
+    """Each row's neighbour mask of a (27, N) int32 map on its device: the
+    key kernel on the card (counted in `row_order_keys.launches`), the
+    plain twin elsewhere."""
+    n = nbr_idx.shape[1]
+    if nbr_idx.shape[0] != 27 or nbr_idx.dtype != torch.int32:
+        raise ValueError(f"row_order: nbr_idx {tuple(nbr_idx.shape)} "
+                         f"{nbr_idx.dtype}, want (27, N) int32")
+    if nbr_idx.device.type != "cuda" or n == 0:
+        return row_order_keys_plain(nbr_idx)
+    keys = torch.empty(n, dtype=torch.int32, device=nbr_idx.device)
+    _build.check(_build.load().row_order_keys(
+        _build.ptr(nbr_idx.contiguous()), _build.ptr(keys), n,
+        _build.stream_of(keys)), "row_order_keys")
+    row_order_keys.launches += 1
+    return keys
+
+
+def row_order_tally(keys):
+    """(2,) int64 on keys' device, of the rows' masks in walking order: the
+    live (offset, 32-row group) pairs and the valid pairs. The tally kernel
+    on the card (counted in `row_order_tally.launches`), the plain twin
+    elsewhere."""
+    n = keys.shape[0]
+    if keys.device.type != "cuda" or n == 0:
+        return row_order_tally_plain(keys)
+    groups = -(-n // 32)
+    tally = torch.empty(2, groups, dtype=torch.int32, device=keys.device)
+    _build.check(_build.load().row_order_tally(
+        _build.ptr(keys), _build.ptr(tally), n, groups,
+        _build.stream_of(keys)), "row_order_tally")
+    row_order_tally.launches += 1
+    return tally.sum(1)
+
+
+row_order_keys.launches = 0
+row_order_tally.launches = 0
+
+
+def row_order(nbr_idx) -> RowOrder:
+    """The row order of a (27, N) int32 neighbour map on its device: the
+    stable ascending sort of the rows' neighbour masks, with its tally. No
+    host read: the tally stays on the device."""
+    keys, order = torch.sort(row_order_keys(nbr_idx), stable=True)
+    return RowOrder(order.to(torch.int32), keys,
+                    *row_order_tally(keys).unbind())
+
+
+def level_order(level) -> RowOrder:
+    """The LevelGraph's row order, built on its first use and kept on the
+    level (`level.order`)."""
+    if level.order is None:
+        level.order = row_order(level.nbr_idx)
+    return level.order
+
+
+def _check_order(name, order, n, device):
+    if order is None:
+        raise ValueError(f"{name}: the card's kernel walks a row order; pass "
+                         "order=level_order(level) or row_order(nbr_idx)")
+    for t in (order.order, order.keys):
+        if (t.shape != (n,) or t.dtype != torch.int32 or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: the row order must be ({n},) int32 "
+                             "tensors on x's device")
+
+
+def _count_macs(order, cin, cout):
+    trace.count("conv3.dense_macs", order.live_groups, 32 * cin * cout)
+    trace.count("conv3.pair_macs", order.pairs, cin * cout)
 
 
 def conv3_fwd_plain(x, w, nbr_idx, valid, scale=None, shift=None,
@@ -111,10 +243,11 @@ def _check(x, w, nbr_idx, valid, scale, shift, residual):
 
 
 def conv3_fwd(x, w, nbr_idx, valid, scale=None, shift=None, residual=None,
-              relu=False):
+              relu=False, order: RowOrder | None = None):
     """x: (N, Cin) f32/bf16; w: (27, Cin, Cout) in x.dtype; nbr_idx: (27, N)
     int32; valid: (N,) bool; scale/shift: (Cout,) f32; residual: (N, Cout)
-    in x.dtype. Returns (N, Cout) in x.dtype."""
+    in x.dtype; order: nbr_idx's RowOrder (required on the card). Returns
+    (N, Cout) in x.dtype."""
     if x.device.type == "cpu":
         return conv3_fwd_plain(x, w, nbr_idx, valid, scale, shift, residual,
                                relu)
@@ -123,17 +256,20 @@ def conv3_fwd(x, w, nbr_idx, valid, scale=None, shift=None, residual=None,
     _check(x, w, nbr_idx, valid, scale, shift, residual)
     n, cin = x.shape
     cout = w.shape[-1]
+    _check_order("conv3_fwd", order, n, x.device)
     out = torch.empty(n, cout, dtype=x.dtype, device=x.device)
     if n == 0:
         return out
     lib = _build.load()
     code = lib.conv3_fwd(
-        _build.ptr(x), _build.ptr(w), _build.ptr(nbr_idx), _build.ptr(valid),
+        _build.ptr(x), _build.ptr(w), _build.ptr(nbr_idx),
+        _build.ptr(order.order), _build.ptr(order.keys), _build.ptr(valid),
         _build.ptr(scale), _build.ptr(shift), _build.ptr(residual),
         _build.ptr(out), n, cin, cout, int(bool(relu)),
         int(x.dtype == torch.bfloat16), _build.stream_of(x))
     _build.check(code, "conv3_fwd")
     conv3_fwd.launches += 1
+    _count_macs(order, cin, cout)
     return out
 
 
@@ -232,10 +368,11 @@ def conv3_dw(x, gm, nbr_idx):
     return dw
 
 
-def conv3_bwd(x, gm, w, nbr_idx, valid):
+def conv3_bwd(x, gm, w, nbr_idx, valid, order: RowOrder | None = None):
     """x: (N, Cin); gm: (N, Cout) in x.dtype, masked to valid rows; w: (27,
-    Cin, Cout) in x.dtype; nbr_idx: (27, N) int32; valid: (N,) bool.
-    Returns (dx (N, Cin) in x.dtype, dW (27, Cin, Cout) in w.dtype)."""
+    Cin, Cout) in x.dtype; nbr_idx: (27, N) int32; valid: (N,) bool; order:
+    nbr_idx's RowOrder, which the dx walks (required on the card). Returns
+    (dx (N, Cin) in x.dtype, dW (27, Cin, Cout) in w.dtype)."""
     if x.device.type == "cpu":
         return conv3_bwd_plain(x, gm, w, nbr_idx, valid)
     if x.device.type != "cuda":
@@ -247,15 +384,18 @@ def conv3_bwd(x, gm, w, nbr_idx, valid):
     if gm.shape[1] != cout:
         raise ValueError(f"conv3_bwd: gm has {gm.shape[1]} channels, w "
                          f"{cout}")
+    _check_order("conv3_bwd", order, n, x.device)
     dx = torch.empty(n, cin, dtype=x.dtype, device=x.device)
     if n > 0:
         wf = flip_transpose(w)
         code = _build.load().conv3_bwd_dx(
-            _build.ptr(gm), _build.ptr(wf),
-            _build.ptr(nbr_idx), _build.ptr(valid), _build.ptr(dx), n, cin,
-            cout, int(x.dtype == torch.bfloat16), _build.stream_of(x))
+            _build.ptr(gm), _build.ptr(wf), _build.ptr(nbr_idx),
+            _build.ptr(order.order), _build.ptr(order.keys),
+            _build.ptr(valid), _build.ptr(dx), n, cin, cout,
+            int(x.dtype == torch.bfloat16), _build.stream_of(x))
         _build.check(code, "conv3_bwd")
         conv3_bwd.launches += 1
+        _count_macs(order, cin, cout)
     return dx, conv3_dw(x, gm, nbr_idx).to(w.dtype)
 
 

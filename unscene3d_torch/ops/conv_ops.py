@@ -15,7 +15,9 @@ the nearest unpool (gathers and a max there too).
 Gradients mirror the JAX package's custom VJPs, as torch.autograd.Functions
 that are used only when an input requires grad (training):
   * k3: dx = the conv of gm with flip-transposed weights and dW = 27 gathered
-    GEMMs, kernels 4 and 5 (ops/conv3.py:conv3_bwd / conv3_dw);
+    GEMMs, kernels 4 and 5 (ops/conv3.py:conv3_bwd / conv3_dw); kernel 1
+    and 4's dx walk the level's row order (ops/conv3.py:level_order, kept
+    on the level, so the forward, remat's recompute and the dx share it);
   * k3 at a brick level: the forward is assemble -> kernel 7 ->
     disassemble, the backward the gather route's (kernels 4 and 5 over the
     level's neighbour map, which the collator builds at every level): the
@@ -51,7 +53,8 @@ import torch
 from unscene3d_torch.ops.brick_engine import (assemble, brick_conv3,
                                               disassemble)
 from unscene3d_torch.ops.conv3 import (conv3_bwd, conv3_dw, conv3_dw_plain,
-                                       conv3_fwd, flip_transpose, fold_bias)
+                                       conv3_fwd, flip_transpose, fold_bias,
+                                       level_order)
 from unscene3d_torch.ops.csr_conv import csr_conv3_fwd
 from unscene3d_torch.ops.k_apply import k_apply
 from unscene3d_torch.ops.sparse_graph import LevelGraph
@@ -67,6 +70,12 @@ def _masked(g, valid, dtype):
     return (g * valid[:, None].to(g.dtype)).to(dtype).contiguous()
 
 
+def _card_order(x, level):
+    """The level's row order where kernel 1 and 4's dx run; the twins walk
+    none."""
+    return level_order(level) if x.is_cuda else None
+
+
 class _Conv3(torch.autograd.Function):
     """k3 conv without epilogue: forward kernel 1, backward kernels 4/5
     (conv_ops.py:_conv3_bwd; window_conv.py:_win_bwd)."""
@@ -75,7 +84,8 @@ class _Conv3(torch.autograd.Function):
     def forward(ctx, x, w, level):
         ctx.save_for_backward(x, w)
         ctx.level = level
-        return conv3_fwd(x, w, level.nbr_idx, level.valid)
+        return conv3_fwd(x, w, level.nbr_idx, level.valid,
+                         order=_card_order(x, level))
 
     @staticmethod
     def backward(ctx, g):
@@ -83,7 +93,8 @@ class _Conv3(torch.autograd.Function):
         lv = ctx.level
         gm = _masked(g, lv.valid, x.dtype)
         if ctx.needs_input_grad[0]:
-            dx, dw = conv3_bwd(x, gm, w, lv.nbr_idx, lv.valid)
+            dx, dw = conv3_bwd(x, gm, w, lv.nbr_idx, lv.valid,
+                               order=_card_order(x, lv))
         else:   # the stem: its input features need no gradient
             dx, dw = None, conv3_dw(x, gm, lv.nbr_idx).to(w.dtype)
         return dx, dw, None
@@ -165,8 +176,9 @@ def sparse_conv3(x, w, level: LevelGraph, bias=None, scale=None, shift=None,
     if level.csr is not None:
         return csr_conv3_fwd(x, w, level.csr, level.valid, scale=scale,
                              shift=shift, residual=residual, relu=relu)
-    return conv3_fwd(x, w, level.nbr_idx, level.valid,
-                     scale=scale, shift=shift, residual=residual, relu=relu)
+    return conv3_fwd(x, w, level.nbr_idx, level.valid, scale=scale,
+                     shift=shift, residual=residual, relu=relu,
+                     order=_card_order(x, level))
 
 
 def sparse_conv1(x, w, level: LevelGraph, bias=None):

@@ -23,6 +23,7 @@ from unscene3d_torch.ops.csr_conv import CsrGraph
 
 if TYPE_CHECKING:
     from unscene3d_torch.ops.brick_engine import BrickGraph
+    from unscene3d_torch.ops.conv3 import RowOrder
 
 
 @dataclasses.dataclass
@@ -54,6 +55,9 @@ class LevelGraph:
     # int32 rows of this level (misses N - 1), the gather table of the dx
     down_nbr_idx: torch.Tensor | None = None
     down_nbr_t: torch.Tensor | None = None
+    # the order kernel 1 and 4's dx walk the rows in, built from nbr_idx by
+    # the level's first k3 conv on that route (ops/conv3.py:level_order)
+    order: "RowOrder | None" = None
 
     @property
     def num_padded(self) -> int:

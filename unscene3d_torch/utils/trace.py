@@ -23,7 +23,11 @@ as device time in a profiler's busy union.
 
 A counter is a named integer added where the work happens, once per call
 with the call's total. `host_syncs.<site>` counts the device-to-host reads on
-the train step's path, one name per site.
+the train step's path, one name per site. A count may be a 0-d device tensor
+times a host integer (`conv3.dense_macs`, `conv3.pair_macs`: ops/conv3.py):
+the tracer keeps the tensor, adds the multipliers of each one, and reads the
+tensors back in `summary()`, after the window, so counting reads nothing
+back in the step.
 """
 
 from __future__ import annotations
@@ -89,6 +93,8 @@ _lock = threading.Lock()
 _local = threading.local()
 _records: list[SpanRecord] = []
 _counters: collections.Counter = collections.Counter()
+# name -> {id(tensor): [tensor, multiplier]}: device counts not read yet
+_pending: dict = {}
 _recording = 0          # depth of open recording() blocks
 
 
@@ -141,12 +147,31 @@ def span(name: str, step: int | None = None):
     return _Span(name, step)
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add `n` to the counter `name` while the tracer is on."""
+def count(name: str, n: int | torch.Tensor = 1, times: int = 1) -> None:
+    """Add `n` x `times` to the counter `name` while the tracer is on; `n`
+    may be a 0-d integer tensor on any device, read in `summary()`."""
     if not (_recording or _profiler._is_profiler_enabled):
         return
     with _lock:
-        _counters[name] += n
+        if isinstance(n, torch.Tensor):
+            held = _pending.setdefault(name, {}).setdefault(id(n), [n, 0])
+            held[1] += times
+        else:
+            _counters[name] += n * times
+
+
+def _read_pending() -> None:
+    """Fold the device counts into the counters: one read a device. Called
+    under the lock."""
+    by_device = collections.defaultdict(list)
+    for name, held in _pending.items():
+        for t, times in held.values():
+            by_device[t.device].append((name, t, times))
+    for items in by_device.values():
+        values = torch.stack([t for _, t, _ in items]).tolist()
+        for (name, _, times), v in zip(items, values):
+            _counters[name] += int(v) * times
+    _pending.clear()
 
 
 @contextlib.contextmanager
@@ -181,6 +206,7 @@ def summary() -> dict:
         if ms is not None:
             s["device_ms"].append(ms)
     with _lock:
+        _read_pending()
         counters = dict(_counters)
     return {"spans": spans, "counters": counters}
 
@@ -190,3 +216,4 @@ def reset() -> None:
     with _lock:
         _records.clear()
         _counters.clear()
+        _pending.clear()
